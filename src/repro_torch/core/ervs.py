@@ -1,0 +1,162 @@
+"""eRVS — enhanced reservoir sampling (port of ``repro/core/ervs.py``;
+paper §3.2, Alg. 1 + Fig. 4): the plain PyTorch versions of kernel K1.
+
+* :func:`ervs_step` — exponential keys ln(u)/w̃, arg-max over the row.
+* :func:`ervs_jump_step` — the A-ExpJ jump variant: each of the ``tile``
+  lanes runs sequential A-ExpJ over its strided subsequence
+  {l, l+tile, …} and the lanes are arg-maxed at the end.
+
+Both keep the reference's logical tiling, which feeds the RNG counters:
+offset ``j`` sits in tile ``t = j // tile`` at lane ``j % tile``, and its
+uniform is lane ``j % tile`` of ``uniform(fold_in(key, t), (tile,))``.
+Only the first ``width`` lanes of a tile that any walker reaches are
+computed; the rest would be masked out anyway.  ``kernels/ervs.py`` runs
+these on CPU tensors and the CUDA kernel on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.ctxutil import degrees_of, eval_weights, tile_ctx
+from repro_torch.core.types import WalkProgram
+from repro_torch.graphs.csr import CSRGraph
+from repro_torch.kernels.prng import (fold_in, threefry2x32, uniform,
+                                      uniform_from_bits)
+
+NEG_INF = float("-inf")
+
+
+def _log_keys(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """ln(key) = ln(u)/w̃ for w̃ > 0, else -inf."""
+    safe_w = torch.where(w > 0, w, 1.0)
+    return torch.where(w > 0, torch.log(u) / safe_w, NEG_INF)
+
+
+def _tile_uniforms(keys: torch.Tensor, t: int, width: int) -> torch.Tensor:
+    """Lanes [0, width) of tile t's uniforms: ``uniform(fold_in(k, t))``."""
+    return uniform(fold_in(keys, t), width)
+
+
+def _trip(deg: torch.Tensor, active: torch.Tensor, tile: int):
+    """(tiles to scan, widest row) over the active walkers."""
+    top = int(torch.where(active, deg, 0).max()) if deg.numel() else 0
+    return -(-top // tile), top
+
+
+def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
+              keys: torch.Tensor, tile: int = 256,
+              active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One eRVS step for a batch of walkers.  Returns next nodes [W] (int64):
+    -1 when no neighbour has a positive weight, -2 for inactive walkers.
+    Ties keep the first offset holding the maximum key."""
+    W = cur.shape[0]
+    if active is None:
+        active = torch.ones(W, dtype=torch.bool, device=cur.device)
+    needed, top = _trip(degrees_of(graph, cur), active, tile)
+    best_lk = torch.full((W,), NEG_INF, device=cur.device)
+    best_nbr = torch.full((W,), -1, dtype=torch.int64, device=cur.device)
+    for t in range(needed):
+        width = min(tile, top - t * tile)
+        ctx, mask = tile_ctx(graph, program, cur, prev, step, t * tile, width)
+        w = eval_weights(program, params, ctx, mask)
+        u = _tile_uniforms(keys, t, width)
+        lk = torch.where(mask & active[:, None], _log_keys(u, w), NEG_INF)
+        tb = lk.argmax(dim=1, keepdim=True)
+        tile_lk = lk.gather(1, tb)[:, 0]
+        tile_nbr = ctx.nbr.gather(1, tb)[:, 0]
+        upd = tile_lk > best_lk
+        best_lk = torch.where(upd, tile_lk, best_lk)
+        best_nbr = torch.where(upd, tile_nbr, best_nbr)
+    return torch.where(active, best_nbr, -2)
+
+
+def ervs_jump_step(graph: CSRGraph, program: WalkProgram, params, cur, prev,
+                   step, keys: torch.Tensor, tile: int = 256,
+                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A-ExpJ (jump) variant; returns next nodes [W] as :func:`ervs_step`
+    does.  The lane with the largest final key wins (first lane on ties)."""
+    W = cur.shape[0]
+    if active is None:
+        active = torch.ones(W, dtype=torch.bool, device=cur.device)
+    lk_max, nbr_best = jump_lanes(graph, program, params, cur, prev, step,
+                                  keys, tile, active)
+    if lk_max.shape[1] == 0:
+        best = torch.full((W,), -1, dtype=torch.int64, device=cur.device)
+    else:
+        lane = lk_max.argmax(dim=1, keepdim=True)
+        best = nbr_best.gather(1, lane)[:, 0]
+        best = torch.where(lk_max.max(dim=1).values > NEG_INF, best, -1)
+    return torch.where(active, best, -2)
+
+
+def jump_lanes(graph: CSRGraph, program: WalkProgram, params, cur, prev,
+               step, keys: torch.Tensor, tile: int, active: torch.Tensor):
+    """Final (key, neighbour) of each A-ExpJ lane: ([W, lanes] float32,
+    [W, lanes] int64) with lanes = min(tile, widest active row).
+
+    Tile t draws u0 from ``fold_in(key, 2t)`` and u1 from ``fold_in(key,
+    2t+1)``; every float operation is a separate IEEE operation in the
+    reference's order (the CUDA kernel does the same with ``__f*_rn``)."""
+    W = cur.shape[0]
+    dev = cur.device
+    needed, top = _trip(degrees_of(graph, cur), active, tile)
+    lanes = min(tile, top)
+    lk_max = torch.full((W, lanes), NEG_INF, device=dev)
+    nbr_best = torch.full((W, lanes), -1, dtype=torch.int64, device=dev)
+    thresh = torch.zeros((W, lanes), device=dev)
+    cumw = torch.zeros((W, lanes), device=dev)
+    one = torch.tensor(1.0, device=dev)
+    for t in range(needed):
+        width = min(tile, top - t * tile)
+        ctx, mask = tile_ctx(graph, program, cur, prev, step, t * tile, width)
+        w = eval_weights(program, params, ctx, mask)
+        w = torch.where(active[:, None], w, 0.0)
+        lk, nb = lk_max[:, :width], nbr_best[:, :width]
+        th, cw = thresh[:, :width], cumw[:, :width]
+        is_first = lk == NEG_INF
+        u0 = _tile_uniforms(keys, 2 * t, width)
+        init_lk = _log_keys(u0, w)
+        crossed = ((cw + w) >= th) & (w > 0) & mask
+        t_w = torch.exp(torch.clamp(w * lk, -80.0, 0.0))
+        u2 = t_w + u0 * (one - t_w)
+        cross_lk = _log_keys(torch.clamp(u2, 1e-38, 1.0), w)
+        new_key = torch.where(is_first, init_lk, cross_lk)
+        take = (is_first & (w > 0) & mask) | crossed
+        u1 = _tile_uniforms(keys, 2 * t + 1, width)
+        lk_new = torch.where(take, new_key, lk)
+        denom = torch.where(lk_new < 0, lk_new, -1e-30)
+        thresh[:, :width] = torch.where(take, torch.log(u1) / denom, th)
+        cumw[:, :width] = torch.where(take, 0.0,
+                                      cw + torch.where(mask, w, 0.0))
+        nbr_best[:, :width] = torch.where(take, ctx.nbr, nb)
+        lk_max[:, :width] = lk_new
+    return lk_max, nbr_best
+
+
+def offset_keys_f64(graph: CSRGraph, program: WalkProgram, params, cur, prev,
+                    step, keys: torch.Tensor, offsets: torch.Tensor,
+                    tile: int = 256) -> torch.Tensor:
+    """float64 eRVS keys ln(u)/w̃ of one row offset per walker, from the
+    same float32 uniforms and weights — what the near-tie contract checks a
+    divergent choice against (float32 log keys are not bitwise portable
+    between math libraries)."""
+    from repro_torch.core.ctxutil import single_edge_ctx
+
+    t, lane = offsets // tile, offsets % tile
+    tk = fold_in(keys, t)
+    r0, r1 = threefry2x32(tk[:, 0], tk[:, 1], 0, lane)
+    u = uniform_from_bits(r0 ^ r1).to(torch.float64)
+    ctx, valid = single_edge_ctx(graph, program, cur, prev, step, offsets)
+    w = torch.where(valid, torch.clamp_min(program.get_weight(ctx, params),
+                                           0.0), 0.0).to(torch.float64)
+    return torch.where(w > 0, torch.log(u) / w, float("-inf"))
+
+
+def within_ulps(a: torch.Tensor, b: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """|a - b| ≤ n float32 ulps at the larger magnitude of the two."""
+    big = torch.maximum(a.abs(), b.abs()).to(torch.float32)
+    ulp = (torch.nextafter(big, torch.tensor(float("inf"))) - big).to(
+        torch.float64)
+    return (a.to(torch.float64) - b.to(torch.float64)).abs() <= n * ulp

@@ -1,0 +1,120 @@
+"""Shared types of the port: edge contexts, walk programs, walker state
+(port of ``repro/core/types.py``).
+
+A :class:`WalkProgram`'s ``get_weight(ctx, params)`` evaluates the
+transition weight w̃ of a whole block of candidate edges at once: every
+:class:`EdgeCtx` field is a tensor of the block's shape.  Because a
+hand-written kernel cannot trace a Python rule, a program that runs on
+the card also names its device weight rule (``kernel_rule``), and — until
+the port's compiler lands — declares the Flexi-Compiler facts the
+reference derives from its jaxpr: the fields its weight reads, its bound
+and its Eq. 12 sum.  Per-walker program state and the ``on_step`` /
+``should_stop`` hooks wait for a later slice; the two ported programs use
+neither.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, FrozenSet, Optional
+
+import torch
+
+from repro_torch.kernels.prng import fold_in
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeCtx:
+    """Context of a block of candidate edges (v_cur → nbr), one tensor per
+    field.  Per-edge: h, label, dist, nbr.  Per-node / per-step: deg_cur,
+    deg_prev, cur, prev, step (broadcast over the block)."""
+
+    h: torch.Tensor
+    label: torch.Tensor
+    dist: torch.Tensor
+    nbr: torch.Tensor
+    deg_cur: torch.Tensor
+    deg_prev: torch.Tensor
+    cur: torch.Tensor
+    prev: torch.Tensor
+    step: torch.Tensor
+
+
+NODE_FIELDS = ("deg_cur", "deg_prev", "cur", "prev", "step")
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkProgram:
+    """A walk program: hyperparameters, a batched weight rule, and what the
+    engine and the kernels need to know about the rule.
+
+    ``reads``       EdgeCtx fields the weight's value depends on (the taint
+                    set the reference's compiler computes).
+    ``bound``       ``bound(bi, params) -> [W]`` upper bound of w̃ over a
+                    walker's row, bitwise the reference compiler's
+                    ``bound_fn`` hi endpoint; None = no bound (eRVS only).
+    ``weight_sum``  ``weight_sum(bi, params) -> [W]`` Eq. 12 estimate of
+                    Σ w̃, bitwise the reference's ``sum_fn``.
+    ``kernel_rule`` ``kernel_rule(params) -> KernelRule``: the device
+                    weight function the CUDA kernels evaluate.
+    """
+
+    name: str
+    init: Callable[[], Any]
+    get_weight: Callable[[EdgeCtx, Any], torch.Tensor]
+    reads: FrozenSet[str] = frozenset({"h"})
+    bound: Optional[Callable[[Any, Any], torch.Tensor]] = None
+    weight_sum: Optional[Callable[[Any, Any], torch.Tensor]] = None
+    kernel_rule: Optional[Callable[[Any], Any]] = None
+    needs_dist: bool = False
+    needs_labels: bool = False
+    num_labels: int = 1
+    weighted: bool = True
+    walk_len: int = 80
+
+    def params(self):
+        return self.init()
+
+
+@dataclasses.dataclass
+class WalkerState:
+    """State of W walker slots (every field's dim 0 is the slot).
+
+    A lane is live for a step iff ``alive ∧ degree(cur) > 0 ∧ step <
+    num_steps``; every other field of a dead or empty lane is residue the
+    live mask hides.  ``rng`` holds the raw key data of each slot's
+    per-query stream ``fold_in(key, query_id)``; the per-step key folds in
+    ``step`` (:meth:`stream_keys`), so a query's draws do not depend on its
+    slot or epoch.
+    """
+
+    cur: torch.Tensor  # [W] int64 current node
+    prev: torch.Tensor  # [W] int64 previous node (-1 before the first step)
+    step: torch.Tensor  # [W] int64 steps taken by the current occupant
+    alive: torch.Tensor  # [W] bool
+    rng: torch.Tensor  # [W, 2] int64 raw per-query key data (uint32 values)
+
+    @staticmethod
+    def stream_key_data(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Raw key data of the per-query streams ``fold_in(key, id)``."""
+        ids = ids.to(torch.int64)
+        return fold_in(key.to(ids.device).expand(ids.shape[0], 2), ids)
+
+    def stream_keys(self) -> torch.Tensor:
+        """[W, 2] per-step keys: each walker's stream ⊕ its step count."""
+        return fold_in(self.rng, self.step)
+
+
+@dataclasses.dataclass
+class StepStats:
+    """Telemetry of one step, over live lanes only (int64 scalars)."""
+
+    live: torch.Tensor
+    rjs_served: torch.Tensor
+    fallbacks: torch.Tensor
+    precomp_served: torch.Tensor
+    stale_served: torch.Tensor
+
+    def host_totals(self) -> dict:
+        """Each counter as a host int, keyed by field name."""
+        return {f.name: int(getattr(self, f.name))
+                for f in dataclasses.fields(self)}

@@ -1,0 +1,74 @@
+"""Bring the reference's objects into the port, handed over as numpy
+arrays (this module imports nothing of the reference: the caller passes
+``np.asarray`` of each field).
+
+Used by the tests to feed the reference and the port the same graph,
+statistics, tables and walker state.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.precomp import PrecompTables
+from repro_torch.core.types import WalkerState, WalkProgram
+from repro_torch.graphs.csr import CSRGraph, NodeStats
+from repro_torch.walks.workloads import make_workload
+
+
+def _t(a, dtype, device):
+    return torch.from_numpy(np.array(a)).to(
+        device=device, dtype=dtype)
+
+
+def graph_from_arrays(indptr, indices, h, labels, device="cpu") -> CSRGraph:
+    return CSRGraph(indptr=_t(indptr, torch.int32, device),
+                    indices=_t(indices, torch.int32, device),
+                    h=_t(h, torch.float32, device),
+                    labels=_t(labels, torch.int32, device))
+
+
+def stats_from_arrays(h_min, h_max, h_sum, h_mean, degree, label_count,
+                      device="cpu") -> NodeStats:
+    return NodeStats(h_min=_t(h_min, torch.float32, device),
+                     h_max=_t(h_max, torch.float32, device),
+                     h_sum=_t(h_sum, torch.float32, device),
+                     h_mean=_t(h_mean, torch.float32, device),
+                     degree=_t(degree, torch.int32, device),
+                     label_count=_t(label_count, torch.int32, device))
+
+
+def tables_from_arrays(cdf, total, invalid, device="cpu") -> PrecompTables:
+    return PrecompTables(cdf=_t(cdf, torch.float32, device),
+                         total=_t(total, torch.float32, device),
+                         invalid=_t(invalid, torch.bool, device))
+
+
+def state_from_arrays(cur, prev, step, alive, rng,
+                      device="cpu") -> WalkerState:
+    """``rng`` is the reference's raw uint32 key data [W, 2]."""
+    return WalkerState(cur=_t(cur, torch.int64, device),
+                       prev=_t(prev, torch.int64, device),
+                       step=_t(step, torch.int64, device),
+                       alive=_t(alive, torch.bool, device),
+                       rng=_t(np.asarray(rng, np.uint32).astype(np.int64),
+                              torch.int64, device))
+
+
+def keys_from_arrays(key_data, device="cpu") -> torch.Tensor:
+    """Raw uint32 key data [..., 2] as the port's int64 keys."""
+    return _t(np.asarray(key_data, np.uint32).astype(np.int64), torch.int64,
+              device)
+
+
+def program_from_params(name: str, params=None, weighted: bool = True
+                        ) -> WalkProgram:
+    """The port's program for a reference workload name (``node2vec`` /
+    ``deepwalk``) and its hyperparameters (an object with ``a``/``b``
+    attributes, a dict, or None for the defaults)."""
+    kw = {}
+    if name == "node2vec" and params is not None:
+        get = params.get if isinstance(params, dict) else (
+            lambda k: getattr(params, k))
+        kw = {"a": float(get("a")), "b": float(get("b"))}
+    return make_workload(name, weighted=weighted, **kw)

@@ -1,0 +1,153 @@
+"""Build the port's CUDA kernels and bind them with ctypes.
+
+Each ``csrc/*.cu`` compiles with ``nvcc`` into its own shared library with
+a plain C interface, all sources in parallel, into ``_build/`` beside this
+file (listed in ``.gitignore``; override with ``REPRO_TORCH_BUILD_DIR``).
+Libraries are named by a hash of their sources and flags, so a build is
+reused until a source changes.  Nothing is built at import: the first
+kernel launch builds, and :func:`build_all` builds ahead of time.
+
+Flags: ``-gencode arch=compute_90a,code=sm_90a`` for Hopper, ``-O3``,
+``-fmad=false`` (no multiply-add contraction: the reference rounds each
+multiply and add; the sources also use ``__f*_rn``), and never
+``--use_fast_math`` (``logf``/``expf`` must be the accurate ones).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("ervs.cu", "erjs.cu", "its.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+#: launches of each kernel since the last :func:`reset_launches`; every
+#: wrapper adds one right after its kernel launched, and nowhere else
+LAUNCHES: Dict[str, int] = {"ervs_select": 0, "ervs_jump_select": 0,
+                            "erjs_select": 0, "its_search": 0}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def build_dir() -> Path:
+    return Path(os.environ.get("REPRO_TORCH_BUILD_DIR",
+                               Path(__file__).resolve().parent / "_build"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _lib_path(source: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+        digest.update(f.read_bytes())
+    return build_dir() / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile every missing library (one ``nvcc`` per source, all started
+    together), load them all, and return them by source stem."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in SOURCES:
+        lib = _lib_path(src)
+        if lib.exists() or Path(src).stem in _LIBS:
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        log = open(lib.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        jobs.append((src, lib, tmp, log,
+                     subprocess.Popen(cmd, stdout=log,
+                                      stderr=subprocess.STDOUT)))
+    failed = []
+    for src, lib, tmp, log, proc in jobs:
+        rc = proc.wait()
+        log.close()
+        if rc:
+            failed.append(f"{src} (rc={rc}, see {lib.with_suffix('.log')}):\n"
+                          + lib.with_suffix(".log").read_text()[-4000:])
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for src in SOURCES:
+        stem = Path(src).stem
+        if stem not in _LIBS:
+            _LIBS[stem] = _bind(stem, ctypes.CDLL(str(_lib_path(src))))
+    return _LIBS
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "ervs": ("repro_ervs_select",
+             [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _I, _I, _I, _P, _P]),
+    "erjs": ("repro_erjs_select",
+             [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _I, _I, _I, _P,
+              _P, _P, _P]),
+    "its": ("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
+}
+
+
+def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn_name, argtypes = _SIGNATURES[stem]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` (building on first use)."""
+    if stem not in _LIBS:
+        build_all()
+    return _LIBS[stem]
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def require(t, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what a kernel takes; wrappers never copy to fix it up."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def require_graph(graph, device) -> None:
+    import torch
+
+    V, E = graph.num_nodes, graph.num_edges
+    require(graph.indptr, "graph.indptr", torch.int32, (V + 1,), device)
+    require(graph.indices, "graph.indices", torch.int32, (E,), device)
+    require(graph.h, "graph.h", torch.float32, (E,), device)
