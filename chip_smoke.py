@@ -19,10 +19,13 @@ Phases (any failure exits non-zero and prints no result line):
 4. main    — ``WalkEngine(graph, program, EngineConfig(method="adaptive",
              jump_threshold=8)).run(np.arange(V), num_steps=80)`` for
              node2vec, then deepwalk, with the launch counts reset just
-             before each run and read just after.  Every emitted step must
-             be an edge and stopped lanes must emit -1.
+             before each run and read just after, and ``run()``'s own
+             host-clock split (setup, admit, steps, harvest).  Every
+             emitted step must be an edge and stopped lanes must emit -1.
 5. timing  — each kernel and its plain version on the lanes one main-path
-             step hands it (the state after 8 steps), with CUDA events.
+             step hands it (the state after 8 steps) under each program
+             that launches it, with CUDA events; the kernel must agree
+             with the plain version there as in phase 3.
 
 ``jump_threshold`` is lowered from the default 1024 to 8, the cost
 model's ``min_rjs_degree``: at uniform weights Eq. 11 sends every hub to
@@ -31,8 +34,8 @@ would serve no lane at all.  At 8 it serves the reservoir lanes the cost
 model could have sent to eRJS but did not, and plain eRVS the rows
 shorter than eRJS's minimum.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel and
+program (``"ervs_select/deepwalk"``, ...); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 LJ_NODES = 4_847_571  # soc-LiveJournal1
 LJ_AVG_DEGREE = 14
+WALK_STEPS = 80
 # the cost model's min_rjs_degree; see the module docstring
 JUMP_THRESHOLD = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -279,13 +283,17 @@ def main_path(eng, steps: int, need: tuple) -> dict:
     counts = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     live = res.live_steps
-    log(f"main [{eng.workload.name}]: {V} walkers x {steps} steps in "
+    name = eng.workload.name.split("[")[0]
+    log(f"main [{name}]: {V} walkers x {steps} steps in "
         f"{dt:.2f} s, {live} live walker-steps, {live / dt:.4g} "
         f"walker-steps/s; frac_rjs={res.frac_rjs:.4f} "
         f"frac_precomp={res.frac_precomp:.4f} "
         f"frac_reservoir={1 - res.frac_rjs - res.frac_precomp:.4f} "
         f"fallbacks={res.rjs_fallbacks}; peak device memory "
         f"{peak / 2**30:.2f} GiB; launches {counts}")
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in res.seconds.items())
+    log(f"main [{name}]: run() phases (host clock): {split}; "
+        f"{res.seconds['steps'] / steps * 1e3:.2f} ms per step")
     for name in need:
         if counts[name] <= 0:
             fail(f"main path [{eng.workload.name}] never launched {name}")
@@ -295,14 +303,15 @@ def main_path(eng, steps: int, need: tuple) -> dict:
     return counts
 
 
-def mid_walk_state(eng, steps_before: int):
-    """Slot state of all V queries after ``steps_before`` steps."""
+def mid_walk_state(eng, steps_before: int, num_steps: int = WALK_STEPS):
+    """Slot state of all V queries of a ``num_steps`` walk after
+    ``steps_before`` steps."""
     import numpy as np
     from repro_torch.core.runtime import EpochScheduler
     from repro_torch.kernels.prng import key_data
 
     V = eng.graph.num_nodes
-    sched = EpochScheduler(eng, num_steps=80,
+    sched = EpochScheduler(eng, num_steps=num_steps,
                            key=key_data(eng.config.seed), slots=V,
                            epoch_len=steps_before, capacity=V)
     sched.admit(np.arange(V), np.arange(V))
@@ -310,8 +319,11 @@ def mid_walk_state(eng, steps_before: int):
     return sched.state
 
 
-def time_kernels(n2v, dw, reps: int) -> dict:
-    """Phase 5: each kernel at the shapes one main-path step gives it."""
+def time_kernels(engines, reps: int) -> dict:
+    """Phase 5: each kernel at the shapes one main-path step gives it,
+    held against its plain version on the same lanes: K2 and K3 bitwise,
+    K1 bitwise or differing only at near-ties.  Rows are keyed by
+    (kernel, program)."""
     import torch
     from repro_torch.core import erjs as erjs_mod
     from repro_torch.core import ervs as ervs_mod
@@ -322,32 +334,32 @@ def time_kernels(n2v, dw, reps: int) -> dict:
     from repro_torch.kernels.its import its_search
 
     rows = {}
-    g = n2v.graph
-    cfg = n2v.config
 
     def lanes_of(state, mask):
         idx = mask.nonzero().squeeze(1)
         return (state.cur[idx].contiguous(), state.prev[idx].contiguous(),
                 state.step[idx].contiguous(), idx)
 
-    def scan_bytes(cur, prev, node2vec: bool):
+    def scan_bytes(g, cur, prev, node2vec: bool):
         deg = degrees_of(g, cur).to(torch.float64)
         per_edge = 8.0 + (4.0 * probes(degrees_of(g, prev)) if node2vec
                           else 0.0)
         return float((56.0 + deg * per_edge).sum()), float(deg.sum())
 
-    for eng in (n2v, dw):
+    for eng in engines:
+        g, cfg = eng.graph, eng.config
         state = mid_walk_state(eng, 8)
         ctx = eng.sampler_ctx
         keys_all = state.stream_keys()
         deg = degrees_of(g, state.cur)
-        live = state.alive & (state.step < 80) & (deg > 0)
+        live = state.alive & (state.step < WALK_STEPS) & (deg > 0)
         part = eng.sampler.partition(ctx, state, live)
         params = ctx.params
         prog = eng.workload
-        is_n2v = prog.name.startswith("node2vec")
+        pname = prog.name.split("[")[0]
+        is_n2v = pname == "node2vec"
         fb = torch.zeros_like(live)
-        if is_n2v:
+        if bool(part.want_rjs.any()):
             cur, prev, step, idx = lanes_of(state, part.want_rjs)
             keys, bnd = keys_all[idx].contiguous(), \
                 part.est.bound_max[idx].contiguous()
@@ -361,25 +373,27 @@ def time_kernels(n2v, dw, reps: int) -> dict:
             plain_ms = cuda_ms(lambda: erjs_mod.erjs_step(
                 g, prog, params, cur, prev, step, keys, bnd, cfg.rjs_trials,
                 cfg.rjs_max_rounds), 1)
+            for x, y, what in zip(got, want, ("next", "fallback", "trials")):
+                if not torch.equal(x, y):
+                    fail(f"erjs_select [{pname}] at main-path shapes: "
+                         f"{what} differs from erjs_step on "
+                         f"{int((x != y).sum())} of {idx.numel()} lanes")
             fb[idx] = got[1]
             trials = got[2].to(torch.float64)
-            nbytes = float((65.0 + trials * (8.0 + 4.0 * probes(
-                degrees_of(g, prev)))).sum())
+            nbytes = float((65.0 + trials * (8.0 + (4.0 * probes(
+                degrees_of(g, prev)) if is_n2v else 0.0))).sum())
             ops = float(trials.sum()) * (4 * THREEFRY_OPS + 30)
             b_ms, b_by = bound(nbytes, ops)
-            rows["erjs_select"] = dict(
+            rows["erjs_select", pname] = dict(
                 lanes=int(idx.numel()), ms=ms, plain_ms=plain_ms,
-                max_abs_err=int(max(int((x.long() - y.long()).abs().max())
-                                    for x, y in zip(got, want))),
-                mismatches=int((got[0] != want[0]).sum()),
-                bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by)
         rest = live & ~part.want_pre
         res_active = rest & (~part.want_rjs | fb)
         lo, hi = eng.sampler.reservoir_split(ctx, part, res_active)
         for jump, mask in ((False, lo), (True, hi)):
             name = "ervs_jump_select" if jump else "ervs_select"
-            if not is_n2v:
-                continue  # K1's main-path rows are taken under node2vec
+            if not bool(mask.any()):
+                continue
             cur, prev, step, idx = lanes_of(state, mask)
             keys = keys_all[idx].contiguous()
             plain = ervs_mod.ervs_jump_step if jump else ervs_mod.ervs_step
@@ -395,16 +409,16 @@ def time_kernels(n2v, dw, reps: int) -> dict:
                                                keys, got, want, cfg.tile,
                                                jump)
             if unexplained:
-                fail(f"{name} at main-path shapes: {unexplained} differences "
-                     f"from the plain version are not near-ties")
-            nbytes, edges = scan_bytes(cur, prev, True)
+                fail(f"{name} [{pname}] at main-path shapes: {unexplained} "
+                     f"differences from the plain version are not near-ties")
+            nbytes, edges = scan_bytes(g, cur, prev, is_n2v)
             per_edge = (4 * THREEFRY_OPS + 80) if jump else THREEFRY_OPS + 40
             b_ms, b_by = bound(nbytes, edges * per_edge)
-            rows[name] = dict(
+            rows[name, pname] = dict(
                 lanes=int(idx.numel()), ms=ms, plain_ms=plain_ms,
-                max_abs_err=int((got - want).abs().max()) if got.numel()
-                else 0, mismatches=n_bad, bound_ms=b_ms, bound_by=b_by)
-        if not is_n2v:
+                max_abs_err=int((got - want).abs().max()), mismatches=n_bad,
+                bound_ms=b_ms, bound_by=b_by)
+        if bool(part.want_pre.any()):
             cur, _, _, idx = lanes_of(state, part.want_pre)
             keys = keys_all[idx].contiguous()
             run = lambda: its_search(g, eng.precomp, cur, keys)
@@ -413,19 +427,22 @@ def time_kernels(n2v, dw, reps: int) -> dict:
             want = its_offsets(g, eng.precomp, cur, keys)
             plain_ms = cuda_ms(lambda: its_offsets(g, eng.precomp, cur, keys),
                                1)
+            if not torch.equal(got, want):
+                fail(f"its_search [{pname}] at main-path shapes: differs "
+                     f"from its_offsets on {int((got != want).sum())} of "
+                     f"{idx.numel()} lanes")
             pr = probes(degrees_of(g, cur))
             nbytes = float((44.0 + 4.0 * pr).sum())
             ops = float((THREEFRY_OPS + 10 + 3 * pr).sum())
             b_ms, b_by = bound(nbytes, ops)
-            rows["its_search"] = dict(
+            rows["its_search", pname] = dict(
                 lanes=int(idx.numel()), ms=ms, plain_ms=plain_ms,
-                max_abs_err=int((got - want).abs().max()),
-                mismatches=int((got != want).sum()), bound_ms=b_ms,
-                bound_by=b_by)
-    for name, r in rows.items():
-        log(f"time {name}: {r['lanes']} lanes, kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['mismatches']} differences")
+                max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by)
+    for (name, pname), r in rows.items():
+        log(f"time {name} [{pname}]: {r['lanes']} lanes, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
+            f"differences")
     return rows
 
 
@@ -444,7 +461,7 @@ SOURCES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=LJ_NODES)
-    ap.add_argument("--steps", type=int, default=80)
+    ap.add_argument("--steps", type=int, default=WALK_STEPS)
     ap.add_argument("--reps", type=int, default=5,
                     help="timed runs per kernel in phase 5")
     args = ap.parse_args()
@@ -504,25 +521,27 @@ def main() -> int:
         "versions")
     check_small_engine()
 
-    # 4. the main path
+    # 4. the main path, one run per program
     launches = {}
     for eng, need in ((n2v, ("ervs_select", "ervs_jump_select",
                              "erjs_select")),
-                      (dw, ("its_search",))):
+                      (dw, ("its_search", "ervs_select"))):
         counts = main_path(eng, args.steps, need)
         for name in need:
-            launches[name] = counts[name]
+            launches[name, eng.workload.name.split("[")[0]] = counts[name]
 
     # 5. kernel times at main-path shapes
-    rows = time_kernels(n2v, dw, args.reps)
+    rows = time_kernels((n2v, dw), args.reps)
     kernels = []
-    for name in ("ervs_select", "ervs_jump_select", "erjs_select",
-                 "its_search"):
-        r = rows[name]
+    for (name, pname), n in launches.items():
+        if (name, pname) not in rows:
+            fail(f"{name} [{pname}]: the main path launched it but step 8 "
+                 f"gave it no lanes to time")
+        r = rows[name, pname]
         src, replaces = SOURCES[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "name": f"{name}/{pname}", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -18,7 +18,7 @@ mega-step wait for later slices.
 from __future__ import annotations
 
 import dataclasses
-import math
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -75,6 +75,11 @@ class WalkResult:
     live_steps: int = 0
     frac_precomp: float = 0.0
     frac_stale: float = 0.0
+    # host-clock seconds of run()'s phases: "setup" (queue order, path
+    # matrix), "admit" (refills, until their device work is done),
+    # "steps" (the step loop, until its telemetry is on the host) and
+    # "harvest" (emitted entries copied into the path matrix)
+    seconds: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -108,6 +113,8 @@ class EpochScheduler:
         self.slot_query = np.full(self.W, -1, np.int64)
         self.totals = {"live": 0, "rjs_served": 0, "fallbacks": 0,
                        "precomp_served": 0, "stale_served": 0}
+        # host-clock seconds per phase; see WalkResult.seconds
+        self.seconds = {"admit": 0.0, "steps": 0.0, "harvest": 0.0}
         dev = engine.device
         self.state = WalkerState(
             cur=torch.zeros(self.W, dtype=torch.int64, device=dev),
@@ -140,6 +147,7 @@ class EpochScheduler:
         qs = np.asarray(query_ids, np.int64).reshape(-1)
         if qs.size == 0:
             return 0
+        t0 = time.perf_counter()
         starts = np.asarray(starts, np.int64).reshape(-1)
         free = self.free_slots()
         if qs.size > free.size:
@@ -159,14 +167,18 @@ class EpochScheduler:
         s.alive[idx] = True
         s.rng[idx] = WalkerState.stream_key_data(
             self.key, torch.from_numpy(qs).to(dev))
+        self.seconds["admit"] += time.perf_counter() - t0
         return int(qs.size)
 
     def run_epoch(self) -> EpochReport:
         """Run ``T`` steps, harvest the emitted path entries, and report
         which queries completed."""
-        step0 = self.state.step.cpu().numpy()
+        t0 = time.perf_counter()
+        step0 = self.state.step.cpu().numpy()  # waits for the refills
+        t1 = time.perf_counter()
         self.state, emitted, stats = self.engine.run_epoch_fn(
             self.state, epoch_len=self.T, num_steps=self.num_steps)
+        t2 = time.perf_counter()
         emitted = emitted.cpu().numpy()  # [W, T]
         step1 = self.state.step.cpu().numpy()
         alive1 = self.state.alive.cpu().numpy()
@@ -190,6 +202,9 @@ class EpochScheduler:
         completed = self.slot_query[done].copy()
         steps_taken = step1[done].copy()
         self.slot_query[done] = -1
+        self.seconds["admit"] += t1 - t0
+        self.seconds["steps"] += t2 - t1
+        self.seconds["harvest"] += time.perf_counter() - t2
         return EpochReport(completed=completed, steps_taken=steps_taken,
                            occupied=int(occupied.size), stats=stats)
 
@@ -209,9 +224,9 @@ class WalkEngine:
                                 num_labels=max(workload.num_labels, 1))
         self.compiled = fc.analyze(workload)
         self.max_degree = self.graph.max_degree()
+        # a power-of-two row width that holds every row (exact_probs)
         self.pad = max(1 << max(self.max_degree - 1, 0).bit_length(),
                        self.config.tile)
-        self.max_tiles = math.ceil(self.pad / self.config.tile)
         params = workload.params()
         self.precomp = None
         if self.sampler.caps.needs_precomp and fc.is_static(workload):
@@ -220,7 +235,7 @@ class WalkEngine:
         self.sampler_ctx = SamplerContext(
             graph=self.graph, workload=workload, params=params,
             compiled=self.compiled, stats=self.stats, config=self.config,
-            pad=self.pad, max_tiles=self.max_tiles, precomp=self.precomp)
+            precomp=self.precomp)
 
     def step(self, state: WalkerState, num_steps: int
              ) -> Tuple[WalkerState, torch.Tensor, StepStats]:
@@ -278,6 +293,7 @@ class WalkEngine:
         if epoch_len is not None and epoch_len <= 0:
             raise ValueError(f"epoch_len must be positive, got {epoch_len}")
         key = key_data(self.config.seed) if key is None else key
+        t0 = time.perf_counter()
         starts = np.asarray(starts, np.int64)
         Q = starts.shape[0]
         if Q == 0:
@@ -292,6 +308,7 @@ class WalkEngine:
                                epoch_len=T, capacity=Q)
         deg_np = self.graph.degrees().cpu().numpy()
         queue = np.argsort(deg_np[starts], kind="stable")  # served in order
+        setup = time.perf_counter() - t0
         head = 0
         while head < Q or sched.busy:
             free = sched.free_slots()
@@ -306,7 +323,8 @@ class WalkEngine:
             / max(live, 1), rjs_fallbacks=sched.totals["fallbacks"],
             steps=num_steps, live_steps=live,
             frac_precomp=sched.totals["precomp_served"] / max(live, 1),
-            frac_stale=sched.totals["stale_served"] / max(live, 1))
+            frac_stale=sched.totals["stale_served"] / max(live, 1),
+            seconds={"setup": setup, **sched.seconds})
 
 
 def exact_probs(graph: CSRGraph, workload: WalkProgram, params, v: int,

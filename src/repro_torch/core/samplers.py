@@ -69,8 +69,6 @@ class SamplerContext:
     compiled: fc.CompiledWorkload
     stats: object  # NodeStats
     config: object  # EngineConfig
-    pad: int
-    max_tiles: int
     precomp: Optional[PrecompTables] = None
 
     def bound_inputs(self, state: WalkerState) -> fc.BoundInputs:

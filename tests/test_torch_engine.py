@@ -14,6 +14,7 @@ eRVS, and — in the bound-starved configuration — eRJS fallbacks):
 * the CLI runs on the CPU, and asking for CUDA without a card raises.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -204,6 +205,19 @@ def test_batch_and_refill_runs_equal_the_full_run(runs, name):
         assert np.array_equal(part.paths, full.paths)
         assert (part.frac_rjs, part.frac_precomp, part.live_steps) == \
             (full.frac_rjs, full.frac_precomp, full.live_steps)
+
+
+def test_run_reports_its_host_phase_split(runs):
+    """``WalkResult.seconds`` splits run() on the host clock; the phases
+    are disjoint, so they sum to no more than the call's own wall time."""
+    _, eng, _ = runs["deepwalk", "default"]
+    t0 = time.perf_counter()
+    res = eng.run(np.arange(V), num_steps=STEPS, batch=64, epoch_len=2)
+    wall = time.perf_counter() - t0
+    assert set(res.seconds) == {"setup", "admit", "steps", "harvest"}
+    assert all(s >= 0.0 for s in res.seconds.values())
+    assert res.seconds["steps"] > 0.0
+    assert sum(res.seconds.values()) <= wall
 
 
 @pytest.mark.parametrize("name", ["node2vec", "deepwalk"])

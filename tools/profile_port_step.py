@@ -4,8 +4,9 @@
     PYTHONPATH=src python tools/profile_port_step.py [--nodes N] [--steps 4] \
         [--out-dir DIR]
 
-Builds the graph ``chip_smoke.py`` runs (soc-LiveJournal1 scale by
-default), admits every node as a query, runs 8 warm-up steps, then traces
+Builds the graph ``chip_smoke.py`` runs, with its constants and its
+mid-walk state (soc-LiveJournal1 scale by default, every node a query,
+8 warm-up steps), then traces
 ``--steps`` more steps of ``WalkEngine.step`` per program with
 ``torch.profiler`` (CPU + CUDA).  Prints, per program: wall milliseconds
 per step (host clock, synchronised), device-busy milliseconds per step
@@ -22,28 +23,23 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402  (the cell's one definition)
 
 
 def profile_program(eng, steps: int, out_dir=None) -> None:
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.runtime import EpochScheduler
-    from repro_torch.kernels.prng import key_data
 
     V = eng.graph.num_nodes
-    sched = EpochScheduler(eng, num_steps=80, key=key_data(eng.config.seed),
-                           slots=V, epoch_len=8, capacity=V)
-    sched.admit(np.arange(V), np.arange(V))
-    sched.run_epoch()
-    state = sched.state
+    state = chip_smoke.mid_walk_state(eng, 8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, _, _ = eng.step(state, 80)
+            state, _, _ = eng.step(state, chip_smoke.WALK_STEPS)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
     events = prof.key_averages()
@@ -75,7 +71,7 @@ def profile_program(eng, steps: int, out_dir=None) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--nodes", type=int, default=4_847_571)
+    ap.add_argument("--nodes", type=int, default=chip_smoke.LJ_NODES)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--out-dir", type=Path, default=None,
                     help="write the full profiler tables here")
@@ -90,9 +86,10 @@ def main() -> int:
     from repro_torch.graphs import power_law_graph
     from repro_torch.walks import deepwalk, node2vec
 
-    graph = power_law_graph(args.nodes, 14,
+    graph = power_law_graph(args.nodes, chip_smoke.LJ_AVG_DEGREE,
                             weight_dist="uniform", seed=0).to("cuda")
-    cfg = EngineConfig(method="adaptive", jump_threshold=8)
+    cfg = EngineConfig(method="adaptive",
+                       jump_threshold=chip_smoke.JUMP_THRESHOLD)
     for program in (node2vec(), deepwalk()):
         profile_program(WalkEngine(graph, program, cfg), args.steps,
                         args.out_dir)
