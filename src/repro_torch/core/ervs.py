@@ -9,8 +9,8 @@ paper §3.2, Alg. 1 + Fig. 4): the plain PyTorch versions of kernel K1.
 Both keep the reference's logical tiling, which feeds the RNG counters:
 offset ``j`` sits in tile ``t = j // tile`` at lane ``j % tile``, and its
 uniform is lane ``j % tile`` of ``uniform(fold_in(key, t), (tile,))``.
-Only the first ``width`` lanes of a tile that any walker reaches are
-computed; the rest would be masked out anyway.  ``kernels/ervs.py`` runs
+Only the offsets some walker's row reaches are computed; the rest would be
+masked out anyway.  ``kernels/ervs.py`` runs
 these on CPU tensors and the CUDA kernel on the card.
 """
 from __future__ import annotations
@@ -26,6 +26,8 @@ from repro_torch.kernels.prng import (fold_in, threefry2x32, uniform,
                                       uniform_from_bits)
 
 NEG_INF = float("-inf")
+# entries ([walkers, offsets]) of one ervs_step block
+_BLOCK_ELEMS = 1 << 22
 
 
 def _log_keys(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -50,25 +52,43 @@ def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
               active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One eRVS step for a batch of walkers.  Returns next nodes [W] (int64):
     -1 when no neighbour has a positive weight, -2 for inactive walkers.
-    Ties keep the first offset holding the maximum key."""
+    Ties keep the first offset holding the maximum key.
+
+    Each pass takes the walkers whose rows reach its first tile and as
+    many whole tiles as keep the block under ``_BLOCK_ELEMS`` entries, so
+    a few hubs among many short rows cost their own length, not every
+    walker's.  The first maximum of a block is the first maximum of its
+    tiles taken in order, so blocks change no choice."""
     W = cur.shape[0]
     if active is None:
         active = torch.ones(W, dtype=torch.bool, device=cur.device)
-    needed, top = _trip(degrees_of(graph, cur), active, tile)
+    deg = degrees_of(graph, cur)
+    needed, top = _trip(deg, active, tile)
     best_lk = torch.full((W,), NEG_INF, device=cur.device)
     best_nbr = torch.full((W,), -1, dtype=torch.int64, device=cur.device)
-    for t in range(needed):
-        width = min(tile, top - t * tile)
-        ctx, mask = tile_ctx(graph, program, cur, prev, step, t * tile, width)
+    t = 0
+    while t < needed:
+        lanes = (active & (deg > t * tile)).nonzero().squeeze(1)
+        k = max(1, min(needed - t, _BLOCK_ELEMS // (lanes.numel() * tile)))
+        width = min(k * tile, top - t * tile)
+        c = cur[lanes]
+        ctx, mask = tile_ctx(graph, program, c, prev[lanes], step[lanes],
+                             t * tile, width)
         w = eval_weights(program, params, ctx, mask)
-        u = _tile_uniforms(keys, t, width)
-        lk = torch.where(mask & active[:, None], _log_keys(u, w), NEG_INF)
-        tb = lk.argmax(dim=1, keepdim=True)
-        tile_lk = lk.gather(1, tb)[:, 0]
-        tile_nbr = ctx.nbr.gather(1, tb)[:, 0]
-        upd = tile_lk > best_lk
-        best_lk = torch.where(upd, tile_lk, best_lk)
-        best_nbr = torch.where(upd, tile_nbr, best_nbr)
+        if k == 1:  # only the lanes some row reaches
+            u = _tile_uniforms(keys[lanes], t, width)
+        else:
+            tiles = torch.arange(t, t + k, device=cur.device)
+            u = uniform(fold_in(keys[lanes, None, :], tiles[None, :]), tile)
+            u = u.reshape(lanes.numel(), k * tile)[:, :width]
+        lk = torch.where(mask, _log_keys(u, w), NEG_INF)
+        b = lk.argmax(dim=1, keepdim=True)
+        blk_lk = lk.gather(1, b)[:, 0]
+        upd = blk_lk > best_lk[lanes]
+        best_lk[lanes] = torch.where(upd, blk_lk, best_lk[lanes])
+        best_nbr[lanes] = torch.where(upd, ctx.nbr.gather(1, b)[:, 0],
+                                      best_nbr[lanes])
+        t += k
     return torch.where(active, best_nbr, -2)
 
 

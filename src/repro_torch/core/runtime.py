@@ -10,14 +10,18 @@ records :class:`StepStats` over live lanes only.  Random streams are keyed
 per query (``fold_in(key, query_id)``), so paths and telemetry are
 identical for any ``batch`` / ``epoch_len``.
 
-The reference runs each epoch as one jitted ``lax.scan``; here it is a
-Python loop of steps whose regimes are the CUDA kernels on the card.
-``kill``, ``walk_batch``, multi-device runs, graph updates and the fused
-mega-step wait for later slices.
+An epoch runs one of two ways (``EngineConfig.step_exec``), with the same
+paths and telemetry bit for bit: "staged", a Python loop of steps whose
+regimes are the CUDA kernels K1–K3 and K5 on the card (the reference's
+jitted ``lax.scan``), or "fused", the whole epoch in one launch of K4
+(``kernels/megastep.py``, the reference's mega-step) when the (sampler ×
+program) cell has a fused regime.  ``kill``, ``walk_batch``, multi-device
+runs and graph updates wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional, Tuple
 
@@ -33,9 +37,20 @@ from repro_torch.core.samplers import (SamplerContext, available_samplers,
 from repro_torch.core.types import StepStats, WalkerState, WalkProgram
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph, node_stats
+from repro_torch.kernels import megastep
 from repro_torch.kernels.prng import key_data
 
 DEFAULT_EPOCH_LEN = 16
+
+# Step execution paths (EngineConfig.step_exec): "staged" = the step loop
+# of WalkEngine.step; "fused" = one K4 launch per epoch for a cell with a
+# fused regime; "auto" = fused on the card when the cell is fusable,
+# staged on the CPU.  Both give the same bits; a cell with no fused regime
+# keeps the staged loop (WalkEngine.step_exec_resolved says which ran).
+STEP_EXEC_CHOICES = ("auto", "fused", "staged")
+# the reference kernel's tile geometry (an even tile dividing 1024), kept
+# so both packages resolve the same cells to the fused path
+KERNEL_TILE = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +70,8 @@ class EngineConfig:
     # where the engine runs: "cuda" (the kernels) or "cpu" (their plain
     # versions); "cuda" without a card raises
     device: str = "cuda"
+    # step execution path: see STEP_EXEC_CHOICES
+    step_exec: str = "auto"
 
     def __post_init__(self):
         if self.method not in available_samplers():
@@ -64,6 +81,11 @@ class EngineConfig:
                 f"{', '.join(available_samplers())}")
         if self.tile < 1:
             raise ValueError(f"tile must be positive, got {self.tile}")
+        if self.step_exec not in STEP_EXEC_CHOICES:
+            raise ValueError(
+                f"step_exec {self.step_exec!r} does not name a step "
+                f"execution path; valid choices: "
+                f"{', '.join(STEP_EXEC_CHOICES)}")
 
 
 @dataclasses.dataclass
@@ -227,15 +249,99 @@ class WalkEngine:
         # a power-of-two row width that holds every row (exact_probs)
         self.pad = max(1 << max(self.max_degree - 1, 0).bit_length(),
                        self.config.tile)
+        # fused plan: a (sampler × program) cell runs as one K4 launch per
+        # epoch when the program is fusable, the sampler names a fused
+        # regime, and rejection's bound can be baked per node
+        self.fuse = fc.fuse_report(workload)
+        will_precomp = (self.sampler.caps.needs_precomp
+                        and fc.is_static(workload))
+        self._fused_kind = self._plan_fused_kind(will_precomp)
         params = workload.params()
-        self.precomp = None
-        if self.sampler.caps.needs_precomp and fc.is_static(workload):
-            self.precomp = precomp_mod.build_tables(self.graph, workload,
-                                                    params)
         self.sampler_ctx = SamplerContext(
             graph=self.graph, workload=workload, params=params,
             compiled=self.compiled, stats=self.stats, config=self.config,
-            precomp=self.precomp)
+            precomp=(precomp_mod.build_tables(
+                self.graph, workload, params,
+                alias=self.sampler.caps.needs_alias)
+                if will_precomp else None))
+        self._fused_epoch_fn = (self._build_fused_epoch()
+                                if self._fused_kind else None)
+        self._fused_bmax = None
+        self._refresh_fused_streams()
+
+    @property
+    def precomp(self) -> Optional[precomp_mod.PrecompTables]:
+        """The baked tables every path draws from (None: not static)."""
+        return self.sampler_ctx.precomp
+
+    @precomp.setter
+    def precomp(self, tables: precomp_mod.PrecompTables) -> None:
+        """Swap in tables of the same graph and program, e.g. with rows
+        marked stale in ``invalid``."""
+        if self.sampler_ctx.precomp is None:
+            raise ValueError(f"{self.workload.name} under "
+                             f"{self.config.method!r} draws from no tables")
+        self.sampler_ctx = dataclasses.replace(self.sampler_ctx,
+                                               precomp=tables)
+
+    # ------------------------------------------------------ fused planning
+    @property
+    def step_exec_resolved(self) -> str:
+        """The step execution path this engine runs: "fused" or "staged"."""
+        return "fused" if self._fused_epoch_fn is not None else "staged"
+
+    def _plan_fused_kind(self, will_precomp: bool) -> Optional[str]:
+        """Resolve ``config.step_exec`` against the fusability facts: the
+        fused regime to run, or None for the staged loop."""
+        cfg = self.config
+        if cfg.step_exec == "staged":
+            return None
+        if cfg.step_exec == "auto" and self.device.type != "cuda":
+            return None  # the plain fused loop is a test vehicle, not a win
+        if not self.fuse.fusable:
+            return None
+        kind = self.sampler.fused_kind(usable=self.compiled.usable,
+                                       has_precomp=will_precomp)
+        if kind is None:
+            return None
+        if kind == "rejection" and not self.fuse.bound_node_local:
+            # K4 reads a per-node bound table; a bound that depends on the
+            # walker's state cannot be baked.  Never downgrade to the
+            # reservoir regime (other telemetry): stay staged.
+            return None
+        tile = cfg.tile
+        if tile < 2 or tile % 2 or KERNEL_TILE % tile:
+            return None
+        return kind
+
+    def _bake_bmax(self) -> torch.Tensor:
+        """Per-node rejection bound table [V] for K4.  Sound because the
+        plan requires ``fuse.bound_node_local``: the bound ignores prev and
+        step, so evaluating it at a placeholder walker gives every walker's
+        bound at v."""
+        V = self.graph.num_nodes
+        dev = self.device
+        bi = fc.BoundInputs(
+            h_min=self.stats.h_min, h_max=self.stats.h_max,
+            h_mean=self.stats.h_mean, deg_cur=self.graph.degrees().long(),
+            deg_prev=torch.zeros(V, dtype=torch.int64, device=dev),
+            cur=torch.arange(V, dtype=torch.int64, device=dev),
+            prev=torch.full((V,), -1, dtype=torch.int64, device=dev),
+            step=torch.zeros(V, dtype=torch.int64, device=dev))
+        return self.compiled.bound_fn(bi)
+
+    def _build_fused_epoch(self):
+        cfg = self.config
+        return functools.partial(
+            megastep.fused_epoch, self.graph, self.workload,
+            self.sampler_ctx.params, kind=self._fused_kind, tile=cfg.tile,
+            rjs_trials=cfg.rjs_trials, rjs_max_rounds=cfg.rjs_max_rounds)
+
+    def _refresh_fused_streams(self) -> None:
+        """(Re)bake what K4 reads beside the graph and the tables: the
+        per-node bound table of the rejection regime."""
+        self._fused_bmax = (self._bake_bmax()
+                            if self._fused_kind == "rejection" else None)
 
     def step(self, state: WalkerState, num_steps: int
              ) -> Tuple[WalkerState, torch.Tensor, StepStats]:
@@ -263,17 +369,26 @@ class WalkEngine:
 
     def run_epoch_fn(self, state: WalkerState, *, epoch_len: int,
                      num_steps: int):
-        """``epoch_len`` steps: (state', emitted [W, T], summed stats)."""
+        """``epoch_len`` steps: (state', emitted [W, T], summed stats), by
+        one K4 launch on the fused path or the step loop on the staged
+        one."""
+        names = [f.name for f in dataclasses.fields(StepStats)]
+        if self._fused_epoch_fn is not None:
+            state, emitted, flags = self._fused_epoch_fn(
+                state, epoch_len=epoch_len, num_steps=num_steps,
+                bmax=self._fused_bmax, tables=self.precomp)
+            st = StepStats.from_flag_bits(flags)
+            sums = torch.stack([getattr(st, n).sum() for n in names])
+            return state, emitted, dict(zip(names, sums.cpu().tolist()))
         emitted = []
         sums = None
         for _ in range(epoch_len):
             state, out, st = self.step(state, num_steps)
             emitted.append(out.to(torch.int32))
-            vals = torch.stack([getattr(st, f.name).to(torch.int64)
-                                for f in dataclasses.fields(st)])
+            vals = torch.stack([getattr(st, n).to(torch.int64)
+                                for n in names])
             sums = vals if sums is None else sums + vals
-        totals = dict(zip((f.name for f in dataclasses.fields(StepStats)),
-                          sums.cpu().tolist()))
+        totals = dict(zip(names, sums.cpu().tolist()))
         return state, torch.stack(emitted, dim=1), totals
 
     def run(self, starts, num_steps: Optional[int] = None,

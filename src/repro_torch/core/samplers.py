@@ -3,7 +3,10 @@
 
 The engine resolves ``EngineConfig.method`` through the registry and calls
 ``sampler.select(ctx, state, keys, active=live)`` once per step.  This
-slice registers ``adaptive``, ``ervs``, ``ervs_jump`` and ``erjs``.
+slice registers ``adaptive``, ``ervs``, ``ervs_jump``, ``erjs``,
+``its_precomp`` and ``alias_precomp``.  ``Sampler.fused_kind`` names the
+fused-epoch regime (``kernels/megastep.FUSED_KINDS``) that reproduces a
+sampler bit for bit, or None when it has none and must run staged.
 
 :class:`PartitionedSampler` is the paper's runtime adaptation (§4.1,
 §5.2): per node, precomp > rejection > reservoir.  Static rows draw from
@@ -25,8 +28,9 @@ import torch
 
 from repro_torch.core import flexi_compiler as fc
 from repro_torch.core.ctxutil import degrees_of
-from repro_torch.core.precomp import PrecompTables
+from repro_torch.core.precomp import PrecompTables, offset_nodes
 from repro_torch.core.types import WalkerState
+from repro_torch.kernels.alias import alias_pick
 from repro_torch.kernels.erjs import erjs_select
 from repro_torch.kernels.ervs import ervs_select
 from repro_torch.kernels.its import its_search
@@ -35,6 +39,7 @@ from repro_torch.kernels.its import its_search
 @dataclasses.dataclass(frozen=True)
 class SamplerCaps:
     needs_precomp: bool = False  # wants ITS tables for static programs
+    needs_alias: bool = False  # wants the Vose alias tables as well
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +106,13 @@ class Sampler(abc.ABC):
         """Next nodes for the ``active`` lanes; ``keys`` [W, 2] are the
         per-walker, per-step keys."""
 
+    def fused_kind(self, *, usable: bool, has_precomp: bool
+                   ) -> Optional[str]:
+        """The fused-epoch regime that reproduces this sampler bit for
+        bit, or None (staged only).  ``usable``: the compiler has a bound
+        and sum for the program; ``has_precomp``: tables are baked."""
+        return None
+
 
 _REGISTRY: Dict[str, Sampler] = {}
 
@@ -154,6 +166,9 @@ class ERVSSampler(Sampler):
         z = _zero(state.cur)
         return Selection(_reservoir(ctx, state, keys, active, jump=self.jump),
                          z, z, z, z)
+
+    def fused_kind(self, *, usable, has_precomp):
+        return None if self.jump else "reservoir"
 
 
 class ERVSJumpSampler(ERVSSampler):
@@ -243,9 +258,20 @@ class PartitionedSampler(Sampler):
         hi = res_active & (part.deg >= ctx.config.jump_threshold)
         return res_active & ~hi, hi
 
+    def fused_kind(self, *, usable, has_precomp):
+        # only the plain all-rejection composition ("erjs": always_policy,
+        # stock eRJS, no jump split, no precomp partition) has a fused
+        # regime; without a usable bound every lane takes the reservoir
+        if not (self.policy is always_policy
+                and type(self.rejection) is ERJSRejection
+                and not self.jump_reservoir and not self.precomp_regime):
+            return None
+        return "rejection" if usable else "reservoir"
+
     def select(self, ctx, state, keys, *, active):
         part = self.partition(ctx, state, active)
-        nxt_pre = precomp_table_select(ctx, state, keys, part.want_pre)
+        nxt_pre = precomp_table_select(ctx, state, keys, part.want_pre,
+                                       kind="its")
         rest = active & ~part.want_pre
         nxt_rjs, fb = self.rejection.propose(ctx, state, keys,
                                              part.est.bound_max,
@@ -268,21 +294,69 @@ class PartitionedSampler(Sampler):
 
 
 def precomp_table_select(ctx: SamplerContext, state: WalkerState,
-                         keys: torch.Tensor, active: torch.Tensor
-                         ) -> torch.Tensor:
-    """Next nodes [W] for the ``active`` lanes from the ITS tables (K3);
-    -1 elsewhere and for empty or zero-total rows."""
+                         keys: torch.Tensor, active: torch.Tensor, *,
+                         kind: str) -> torch.Tensor:
+    """Next nodes [W] for the ``active`` lanes from the baked tables
+    (``kind``: "its", kernel K3, or "alias", kernel K5); -1 elsewhere and
+    for empty or zero-total rows."""
     nxt = torch.full_like(state.cur, -1)
     idx = _lanes(active)
     if not idx.numel():
         return nxt
-    graph = ctx.graph
     cur = state.cur[idx]
-    off = its_search(graph, ctx.precomp, cur, keys[idx])
-    pos = (graph.row_starts(cur) + off.clamp_min(0)).clamp(
-        max=max(graph.num_edges - 1, 0))
-    nxt[idx] = torch.where(off >= 0, graph.indices[pos].long(), -1)
+    draw = its_search if kind == "its" else alias_pick
+    nxt[idx] = offset_nodes(ctx.graph, cur,
+                            draw(ctx.graph, ctx.precomp, cur, keys[idx]))
     return nxt
+
+
+class _PrecompBase(Sampler):
+    """The C-SAW-style precomputed samplers: with baked tables (the program
+    is static), valid rows draw from them and stale rows take eRVS over
+    the live graph, counted in ``stale_served``; without tables the
+    sampler is eRVS for good (``frac_precomp == 0``)."""
+
+    caps = SamplerCaps(needs_precomp=True)
+    kind = "its"  # the table family select() draws from
+
+    def __init__(self):
+        self._fallback = ERVSSampler()
+
+    def select(self, ctx, state, keys, *, active):
+        z = _zero(state.cur)
+        if ctx.precomp is None:  # program not static: eRVS for good
+            dyn = self._fallback.select(ctx, state, keys, active=active)
+            return Selection(dyn.next_nodes, z, z, z, z)
+        ok = active & ctx.precomp.row_valid(state.cur)
+        nxt_pre = precomp_table_select(ctx, state, keys, ok, kind=self.kind)
+        stale = active & ~ok
+        dyn = self._fallback.select(ctx, state, keys, active=stale)
+        nxt = torch.where(ok, nxt_pre, torch.where(stale, dyn.next_nodes, -1))
+        # both count only lanes whose draw produced a transition
+        return Selection(
+            next_nodes=nxt, rjs_served=z, fallbacks=z,
+            precomp_served=(ok & (nxt_pre >= 0)).sum(),
+            stale_served=(stale & (dyn.next_nodes >= 0)).sum())
+
+    def fused_kind(self, *, usable, has_precomp):
+        # stale rows take the fused regime's reservoir; without tables the
+        # sampler is eRVS, which the reservoir regime is
+        return f"precomp_{self.kind}" if has_precomp else "reservoir"
+
+
+class ITSPrecompSampler(_PrecompBase):
+    """``its_precomp`` — O(log d) binary search of the baked row CDF."""
+
+    name = "its_precomp"
+    kind = "its"
+
+
+class AliasPrecompSampler(_PrecompBase):
+    """``alias_precomp`` — O(1) draw from the baked Vose alias tables."""
+
+    caps = SamplerCaps(needs_precomp=True, needs_alias=True)
+    name = "alias_precomp"
+    kind = "alias"
 
 
 register_sampler(PartitionedSampler("adaptive", cost_model_policy,
@@ -290,3 +364,5 @@ register_sampler(PartitionedSampler("adaptive", cost_model_policy,
 register_sampler(ERVSSampler())
 register_sampler(ERVSJumpSampler())
 register_sampler(PartitionedSampler("erjs", always_policy))
+register_sampler(ITSPrecompSampler())
+register_sampler(AliasPrecompSampler())

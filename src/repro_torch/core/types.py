@@ -108,6 +108,10 @@ class WalkerState:
 class StepStats:
     """Telemetry of one step, over live lanes only (int64 scalars)."""
 
+    #: bit positions of the per-(lane, step) flag words the fused epoch
+    #: emits (``kernels/megastep.py``); class attributes, not fields
+    LIVE, RJS, FALLBACK, PRECOMP, STALE = 0, 1, 2, 3, 4
+
     live: torch.Tensor
     rjs_served: torch.Tensor
     fallbacks: torch.Tensor
@@ -115,6 +119,19 @@ class StepStats:
     stale_served: torch.Tensor
 
     def host_totals(self) -> dict:
-        """Each counter as a host int, keyed by field name."""
-        return {f.name: int(getattr(self, f.name))
+        """Each counter summed to a host int, keyed by field name."""
+        return {f.name: int(getattr(self, f.name).sum())
                 for f in dataclasses.fields(self)}
+
+    @classmethod
+    def from_flag_bits(cls, flags: torch.Tensor) -> "StepStats":
+        """Per-step counters ([T] int64 each) of a [W, T] int32 flag-word
+        matrix: integer sums per bit, so they equal the staged step's
+        counts exactly."""
+        def count(bit):
+            return ((flags >> bit) & 1).sum(dim=0, dtype=torch.int64)
+
+        return cls(live=count(cls.LIVE), rjs_served=count(cls.RJS),
+                   fallbacks=count(cls.FALLBACK),
+                   precomp_served=count(cls.PRECOMP),
+                   stale_served=count(cls.STALE))

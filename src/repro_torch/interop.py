@@ -38,9 +38,15 @@ def stats_from_arrays(h_min, h_max, h_sum, h_mean, degree, label_count,
                      label_count=_t(label_count, torch.int32, device))
 
 
-def tables_from_arrays(cdf, total, invalid, device="cpu") -> PrecompTables:
+def tables_from_arrays(cdf, total, invalid, device="cpu", *, alias_off=None,
+                       alias_prob=None) -> PrecompTables:
+    """The reference's ``PrecompTables``: the flat arrays, the ``invalid``
+    bitmap and, when given, the alias tables."""
+    opt = lambda a, dtype: None if a is None else _t(a, dtype, device)
     return PrecompTables(cdf=_t(cdf, torch.float32, device),
                          total=_t(total, torch.float32, device),
+                         alias_off=opt(alias_off, torch.int32),
+                         alias_prob=opt(alias_prob, torch.float32),
                          invalid=_t(invalid, torch.bool, device))
 
 

@@ -23,15 +23,18 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ervs.cu", "erjs.cu", "its.cu")
+SOURCES = ("ervs.cu", "erjs.cu", "its.cu", "alias.cu", "megastep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
 
 #: launches of each kernel since the last :func:`reset_launches`; every
 #: wrapper adds one right after its kernel launched, and nowhere else
-LAUNCHES: Dict[str, int] = {"ervs_select": 0, "ervs_jump_select": 0,
-                            "erjs_select": 0, "its_search": 0}
+LAUNCHES: Dict[str, int] = {
+    "ervs_select": 0, "ervs_jump_select": 0, "erjs_select": 0,
+    "its_search": 0, "alias_pick": 0, "fused_epoch_reservoir": 0,
+    "fused_epoch_rejection": 0, "fused_epoch_precomp_its": 0,
+    "fused_epoch_precomp_alias": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -98,7 +101,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
     return _LIBS
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_int64
 _SIGNATURES = {
     "ervs": ("repro_ervs_select",
              [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _I, _I, _I, _P, _P]),
@@ -106,6 +110,10 @@ _SIGNATURES = {
              [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _I, _I, _I, _P,
               _P, _P, _P]),
     "its": ("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
+    "alias": ("repro_alias_pick", [_P, _P, _P, _P, _P, _P, _I, _P, _P]),
+    "megastep": ("repro_fused_epoch",
+                 [_P, _P, _P, _I, _I, _F, _F, _I] + [_P] * 11
+                 + [_I, _I, _I, _I, _I, _L] + [_P] * 7),
 }
 
 

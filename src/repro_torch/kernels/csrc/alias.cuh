@@ -1,0 +1,32 @@
+// Alias table draw of one walker by one thread: the device code of kernel
+// K5 (alias.cu), which the fused epoch K4 (megastep.cu) calls too.
+//
+// (u1, u2) = uniform_pair_01(key, (0, ALIAS_SALT)), column
+// min(int(u1 * float(deg)), deg - 1), kept iff u2 < prob[column], else the
+// column's alias partner; -1 for empty or zero-total rows.
+#pragma once
+#include <cstdint>
+
+#include "threefry.cuh"
+
+namespace repro {
+
+constexpr uint32_t kAliasSalt = 0xA11A5u;
+
+__device__ __forceinline__ int alias_offset(const int32_t* __restrict__ indptr,
+                                            const float* __restrict__ prob,
+                                            const int32_t* __restrict__ alias,
+                                            const float* __restrict__ total,
+                                            int64_t v, uint32_t k0,
+                                            uint32_t k1) {
+  const int64_t start = indptr[v];
+  const int deg = indptr[v + 1] - indptr[v];
+  if (deg <= 0 || !(total[v] > 0.0f)) return -1;
+  float u1, u2;
+  uniform_pair_01(k0, k1, 0u, kAliasSalt, u1, u2);
+  const int col = min(__float2int_rz(__fmul_rn(u1, __int2float_rn(deg))),
+                      deg - 1);
+  return u2 < prob[start + col] ? col : alias[start + col];
+}
+
+}  // namespace repro

@@ -2,12 +2,9 @@
 //
 // Replaces the rejection work of the TPU mega-step kernel
 // (repro/kernels/megastep_kernel.py:225, rejection_lane) as the staged
-// step runs it (repro/core/erjs.py: erjs_step).  Each walker makes up to
-// rounds x trials proposals: trial k of round r draws
-//   u_idx from uniform(fold_in(key, r*2K + 2k)), u_acc from (... + 1),
-//   offset = min(int(u_idx * float(deg)), deg - 1),
-// and accepts iff u_acc * bound <= w && w > 0.  Walkers unresolved after
-// the last round are flagged for the reservoir fallback.
+// step runs it (repro/core/erjs.py: erjs_step).  The trials themselves are
+// erjs_trials (erjs.cuh); walkers unresolved after the last round are
+// flagged for the reservoir fallback.
 //
 // What bounds it on the H100: dependent random reads.  A trial is one
 // gather of (neighbour, h) at a random offset of a hub's row, plus for
@@ -21,17 +18,9 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "threefry.cuh"
-#include "weights.cuh"
+#include "erjs.cuh"
 
 namespace repro {
-
-__device__ __forceinline__ float fold_uniform(uint32_t k0, uint32_t k1,
-                                              uint32_t counter) {
-  uint32_t a0, a1;
-  fold_in(k0, k1, counter, a0, a1);
-  return uniform_from_bits(random_bits(a0, a1, 0u));
-}
 
 __global__ void erjs_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
                             const int64_t* __restrict__ prev,
@@ -42,36 +31,12 @@ __global__ void erjs_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
                             int32_t* __restrict__ used) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t v = cur[i];
-  const int64_t p = prev[i];
-  const int64_t start = g.indptr[v];
-  const int deg = g.indptr[v + 1] - g.indptr[v];
-  const float c = bound[i];
-  const uint32_t k0 = static_cast<uint32_t>(keys[2 * i]);
-  const uint32_t k1 = static_cast<uint32_t>(keys[2 * i + 1]);
-  const bool feasible = deg > 0 && c > 0.0f;
-  const float degf = __int2float_rn(deg);
-  int64_t chosen = -1;
-  bool done = !feasible;
-  int count = 0;
-  for (int r = 0; r < rounds && !done; ++r) {
-    for (int k = 0; k < trials && !done; ++k) {
-      const uint32_t ctr = static_cast<uint32_t>(r * 2 * trials + 2 * k);
-      const float u_idx = fold_uniform(k0, k1, ctr);
-      const float u_acc = fold_uniform(k0, k1, ctr + 1u);
-      const int off = min(__float2int_rz(__fmul_rn(u_idx, degf)), deg - 1);
-      const int64_t nbr = g.indices[start + off];
-      const float w = edge_weight(g, rule, p, start + off, nbr);
-      ++count;
-      if (__fmul_rn(u_acc, c) <= w && w > 0.0f) {
-        chosen = nbr;
-        done = true;
-      }
-    }
-  }
-  out[i] = chosen;
-  fallback[i] = feasible && !done;
-  used[i] = count;
+  const ErjsResult r = erjs_trials(
+      g, rule, cur[i], prev[i], static_cast<uint32_t>(keys[2 * i]),
+      static_cast<uint32_t>(keys[2 * i + 1]), bound[i], trials, rounds);
+  out[i] = r.chosen;
+  fallback[i] = r.fallback;
+  used[i] = r.trials;
 }
 
 }  // namespace repro

@@ -1,9 +1,7 @@
 // K3 — inverse-transform (ITS) table draw on Hopper.
 //
 // Replaces the TPU kernel repro/kernels/precomp_kernel.py:95 its_search
-// (body _its_kernel :53): u = uniform_01(key, (0, ITS_SALT)), target
-// u * total[v], and the first offset of v's inclusive float32 CDF row
-// whose prefix exceeds the target; -1 for empty or zero-total rows.  It
+// (body _its_kernel :53); the draw itself is its_offset (its.cuh).  It
 // searches the flat CSR-order CDF through the row offsets: the TPU
 // kernel's [R, 128] row alignment was a DMA constraint and is not needed.
 //
@@ -14,11 +12,9 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
-#include "threefry.cuh"
+#include "its.cuh"
 
 namespace repro {
-
-constexpr uint32_t kItsSalt = 0x175CDFu;
 
 __global__ void its_kernel(const int32_t* __restrict__ indptr,
                            const float* __restrict__ cdf,
@@ -28,20 +24,9 @@ __global__ void its_kernel(const int32_t* __restrict__ indptr,
                            int64_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const int64_t v = cur[i];
-  const int64_t start = indptr[v];
-  const int deg = indptr[v + 1] - indptr[v];
-  const float tot = total[v];
-  const float u = uniform_01(static_cast<uint32_t>(keys[2 * i]),
-                             static_cast<uint32_t>(keys[2 * i + 1]), 0u,
-                             kItsSalt);
-  const float target = __fmul_rn(u, tot);
-  int lo = 0, hi = deg;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (cdf[start + mid] <= target) lo = mid + 1; else hi = mid;
-  }
-  out[i] = (deg > 0 && tot > 0.0f) ? min(lo, deg - 1) : -1;
+  out[i] = its_offset(indptr, cdf, total, cur[i],
+                      static_cast<uint32_t>(keys[2 * i]),
+                      static_cast<uint32_t>(keys[2 * i + 1]));
 }
 
 }  // namespace repro

@@ -1,0 +1,182 @@
+// K4 — the fused epoch on Hopper: epoch_len walk steps of every walker in
+// one launch.
+//
+// Replaces the TPU mega-step kernel repro/kernels/megastep_kernel.py:423
+// make_streamed_epoch / :517 make_fused_epoch (body _make_kernel :150,
+// pallas_call :494) for programs without on_step/should_stop hooks.  Each
+// walker lane runs the staged step (repro/core/runtime.py, step) epoch_len
+// times without returning to the host: its degree, the per-step key
+// fold_in(rng, step), the regime's draw, the live/stepped/alive update,
+// and a per-(lane, step) int32 flag word (bits LIVE, RJS, FALLBACK,
+// PRECOMP, STALE = 0..4, reduced to StepStats outside) beside the emitted
+// node.  One instance per regime (FUSED_KINDS):
+//   reservoir      ervs_warp_select (ervs.cuh), the code K1 runs;
+//   rejection      erjs_trials (erjs.cuh, K2's code) against the baked
+//                  per-node bound bmax, the reservoir when trials run out;
+//   precomp_its    its_offset (its.cuh, K3's code) on valid rows,
+//   precomp_alias  alias_offset (alias.cuh, K5's code) on valid rows;
+//                  stale rows take the reservoir.
+// Every draw comes from the same Threefry counters as the staged scan, so
+// paths, end state and flags equal it bit for bit.  The TPU kernel's
+// [R, 128] row alignment and slack tiles were DMA constraints: this reads
+// the plain CSR.  The logical tile still feeds the reservoir's counters.
+//
+// What bounds it on the H100: the reservoir's row scans (one Threefry and
+// a logf per edge of the walker's row) and, for the other regimes, chains
+// of dependent 4 B reads (degree, CDF probes, alias columns).  Design: one
+// warp per walker lane for the whole epoch.  The scalar regimes run on all
+// 32 threads alike (same addresses, one transaction), so control flow stays
+// warp-uniform and the reservoir can use the whole warp.  A warp whose
+// walker sits on a hub scans that hub's row every step it stays there.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "alias.cuh"
+#include "erjs.cuh"
+#include "ervs.cuh"
+#include "its.cuh"
+
+namespace repro {
+
+constexpr int kReservoir = 0, kRejection = 1, kPrecompIts = 2,
+              kPrecompAlias = 3;
+constexpr int32_t kLive = 1 << 0, kRjs = 1 << 1, kFallback = 1 << 2,
+                  kPrecomp = 1 << 3, kStale = 1 << 4;
+
+struct EpochIn {
+  const int64_t* cur;
+  const int64_t* prev;
+  const int64_t* step;
+  const bool* alive;
+  const int64_t* rng;     // [W, 2] per-query key data
+  const float* bmax;      // [V] rejection bound per node (rejection)
+  const float* cdf;       // [E] ITS tables (precomp_its)
+  const float* total;     // [V] row totals (precomp kinds)
+  const float* prob;      // [E] alias tables (precomp_alias)
+  const int32_t* alias;   // [E]
+  const bool* invalid;    // [V] stale rows (precomp kinds)
+};
+
+struct EpochOut {
+  int32_t* emitted;  // [W, T]
+  int32_t* flags;    // [W, T]
+  int64_t* cur;
+  int64_t* prev;
+  int64_t* step;
+  bool* alive;
+};
+
+template <int KIND>
+__global__ void fused_epoch_kernel(Graph g, Rule rule, EpochIn in,
+                                   EpochOut out, int n, int tile, int trials,
+                                   int rounds, int epoch_len,
+                                   int64_t num_steps) {
+  const int64_t w = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= n) return;  // whole warps exit together
+  int64_t cur = in.cur[w], prev = in.prev[w], step = in.step[w];
+  bool alive = in.alive[w];
+  const uint32_t s0 = static_cast<uint32_t>(in.rng[2 * w]);
+  const uint32_t s1 = static_cast<uint32_t>(in.rng[2 * w + 1]);
+  for (int t = 0; t < epoch_len; ++t) {
+    const int deg = cur >= 0 ? g.indptr[cur + 1] - g.indptr[cur] : 0;
+    const bool wants = alive && step < num_steps;
+    const bool live = wants && deg > 0;
+    int64_t nxt = -1;
+    int32_t flag = 0;
+    if (live) {
+      uint32_t k0, k1;  // the per-step key: the stream folded with step
+      fold_in(s0, s1, static_cast<uint32_t>(step), k0, k1);
+      flag = kLive;
+      if (KIND == kReservoir) {
+        nxt = ervs_warp_select<false>(g, rule, cur, prev, k0, k1, tile, lane);
+      } else if (KIND == kRejection) {
+        const ErjsResult r = erjs_trials(g, rule, cur, prev, k0, k1,
+                                         in.bmax[cur], trials, rounds);
+        if (r.fallback) {
+          nxt = ervs_warp_select<false>(g, rule, cur, prev, k0, k1, tile,
+                                        lane);
+          flag |= kFallback;
+        } else {
+          nxt = r.chosen;
+          if (nxt >= 0) flag |= kRjs;
+        }
+      } else if (!in.invalid[cur]) {
+        const int off =
+            KIND == kPrecompIts
+                ? its_offset(g.indptr, in.cdf, in.total, cur, k0, k1)
+                : alias_offset(g.indptr, in.prob, in.alias, in.total, cur, k0,
+                               k1);
+        if (off >= 0) {
+          nxt = g.indices[g.indptr[cur] + off];
+          flag |= kPrecomp;
+        }
+      } else {  // stale row: the dynamic path
+        nxt = ervs_warp_select<false>(g, rule, cur, prev, k0, k1, tile, lane);
+        if (nxt >= 0) flag |= kStale;
+      }
+    }
+    const bool stepped = live && nxt >= 0;
+    if (lane == 0) {
+      out.emitted[w * epoch_len + t] = stepped ? static_cast<int32_t>(nxt) : -1;
+      out.flags[w * epoch_len + t] = flag;
+    }
+    // a lane that wanted to step but could not has dead-ended
+    alive = alive && !(wants && !stepped);
+    if (stepped) {
+      prev = cur;
+      cur = nxt;
+      ++step;
+    }
+  }
+  if (lane == 0) {
+    out.cur[w] = cur;
+    out.prev[w] = prev;
+    out.step[w] = step;
+    out.alive[w] = alive;
+  }
+}
+
+}  // namespace repro
+
+extern "C" int repro_fused_epoch(
+    const int32_t* indptr, const int32_t* indices, const float* h, int program,
+    int weighted, float c0, float c2, int kind, const int64_t* cur,
+    const int64_t* prev, const int64_t* step, const bool* alive,
+    const int64_t* rng, const float* bmax, const float* cdf, const float* total,
+    const float* prob, const int32_t* alias, const bool* invalid, int n,
+    int tile, int trials, int rounds, int epoch_len, int64_t num_steps,
+    int32_t* emitted, int32_t* flags, int64_t* ocur, int64_t* oprev,
+    int64_t* ostep, bool* oalive, void* stream) {
+  const repro::Graph g{indptr, indices, h};
+  const repro::Rule rule{program, weighted, c0, c2};
+  const repro::EpochIn in{cur, prev, step, alive, rng, bmax,
+                          cdf, total, prob, alias, invalid};
+  const repro::EpochOut out{emitted, flags, ocur, oprev, ostep, oalive};
+  const int threads = 256;  // 8 walker lanes per block, one warp each
+  const unsigned blocks = static_cast<unsigned>(
+      (static_cast<int64_t>(n) * 32 + threads - 1) / threads);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case repro::kReservoir:
+      repro::fused_epoch_kernel<repro::kReservoir><<<blocks, threads, 0, s>>>(
+          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
+      break;
+    case repro::kRejection:
+      repro::fused_epoch_kernel<repro::kRejection><<<blocks, threads, 0, s>>>(
+          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
+      break;
+    case repro::kPrecompIts:
+      repro::fused_epoch_kernel<repro::kPrecompIts><<<blocks, threads, 0, s>>>(
+          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
+      break;
+    case repro::kPrecompAlias:
+      repro::fused_epoch_kernel<repro::kPrecompAlias><<<blocks, threads, 0, s>>>(
+          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

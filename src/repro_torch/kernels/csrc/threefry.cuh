@@ -3,7 +3,8 @@
 // jax_threefry_partitionable=True:
 //   fold_in(k, d)      = threefry(k, (0, d))
 //   bits(k, (n,))[i]   = r0 ^ r1 of threefry(k, (0, i)); a scalar draw uses i = 0
-//   uniform(minval=1e-12) and the kernels' uniform_01 as below.
+//   uniform(minval=1e-12) and the kernels' uniform_01 / uniform_pair_01
+//   as below.
 // Float maps use __f*_rn so nvcc never contracts them into an FMA (the
 // reference rounds the multiply and the add separately).
 #pragma once
@@ -68,6 +69,18 @@ __device__ __forceinline__ float uniform_01(uint32_t k0, uint32_t k1,
   threefry2x32(k0, k1, c0, c1, r0, r1);
   const float f = __uint2float_rn(r0 >> 8);
   return __fadd_rn(__fmul_rn(f, 1.0f / 16777216.0f), 0.5f / 16777216.0f);
+}
+
+// The reference kernels' uniform_pair_01: the same map on r0 and on r1.
+__device__ __forceinline__ void uniform_pair_01(uint32_t k0, uint32_t k1,
+                                                uint32_t c0, uint32_t c1,
+                                                float& u0, float& u1) {
+  uint32_t r0, r1;
+  threefry2x32(k0, k1, c0, c1, r0, r1);
+  u0 = __fadd_rn(__fmul_rn(__uint2float_rn(r0 >> 8), 1.0f / 16777216.0f),
+                 0.5f / 16777216.0f);
+  u1 = __fadd_rn(__fmul_rn(__uint2float_rn(r1 >> 8), 1.0f / 16777216.0f),
+                 0.5f / 16777216.0f);
 }
 
 }  // namespace repro

@@ -2,8 +2,8 @@
 
 Two families of draws share one generator:
 
-* the kernels' own uniforms (:func:`uniform_01`, the reference's
-  ``kernels/prng.py``), used by the ITS table draw;
+* the kernels' own uniforms (:func:`uniform_01`, :func:`uniform_pair_01`,
+  the reference's ``kernels/prng.py``), used by the table draws;
 * jax's staged draws, which the reference's staged step takes from
   ``jax.random`` with ``jax_threefry_partitionable=True``:
   ``fold_in(k, d) = threefry(k, (0, d))``, ``bits(k, (n,))[i] = r0 ^ r1``
@@ -56,6 +56,16 @@ def uniform_01(k0, k1, c0, c1) -> torch.Tensor:
     r0, _ = threefry2x32(k0, k1, c0, c1)
     f = (r0 >> 8).to(torch.float32)
     return f * _f32(1.0 / (1 << 24)) + _f32(0.5 / (1 << 24))
+
+
+def uniform_pair_01(k0, k1, c0, c1):
+    """Two independent U(0, 1) float32 draws from one Threefry call: the
+    :func:`uniform_01` map applied to ``r0`` and to ``r1`` (the alias
+    table draw's column and coin)."""
+    r0, r1 = threefry2x32(k0, k1, c0, c1)
+    scale, half = _f32(1.0 / (1 << 24)), _f32(0.5 / (1 << 24))
+    return ((r0 >> 8).to(torch.float32) * scale + half,
+            (r1 >> 8).to(torch.float32) * scale + half)
 
 
 def key_data(seed: int) -> torch.Tensor:

@@ -4,7 +4,9 @@
         --nodes 20000 --avg-degree 12 --queries 2048 --steps 40 \
         --method adaptive --device cuda
 
-``--device cpu`` runs the kernels' plain PyTorch versions instead.
+``--device cpu`` runs the kernels' plain PyTorch versions instead;
+``--step-exec fused`` runs each epoch as one fused launch where the
+(method × workload) cell allows it (the summary prints which path ran).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import time
 import numpy as np
 
 from repro_torch.core import EngineConfig, WalkEngine, available_samplers
+from repro_torch.core.runtime import STEP_EXEC_CHOICES
 from repro_torch.device import DEVICES
 from repro_torch.graphs import power_law_graph, random_graph
 from repro_torch.kernels import build
@@ -50,6 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=list(DEVICES), default="cuda",
                     help="cuda runs the CUDA kernels; cpu their plain "
                          "PyTorch versions")
+    ap.add_argument("--step-exec", choices=STEP_EXEC_CHOICES, default="auto",
+                    help="fused: one launch per epoch where the cell has a "
+                         "fused regime; staged: the step loop; auto: fused "
+                         "on the card, staged on the CPU")
     return ap
 
 
@@ -82,9 +89,11 @@ def main(argv=None):
     wl = make_workload(args.workload, **parse_workload_args(args.workload_arg))
     eng = WalkEngine(graph, wl, EngineConfig(method=args.method,
                                              seed=args.seed,
-                                             device=args.device))
+                                             device=args.device,
+                                             step_exec=args.step_exec))
     print(f"[walk] compiler flag: {eng.compiled.flag} "
-          f"warnings={eng.compiled.warnings} device={eng.device}")
+          f"warnings={eng.compiled.warnings} device={eng.device} "
+          f"step_exec={eng.step_exec_resolved}")
     starts = np.arange(args.queries) % graph.num_nodes
     build.reset_launches()
     t0 = time.time()
@@ -95,6 +104,7 @@ def main(argv=None):
     print(f"[walk] {args.queries} queries × {res.steps} steps in {dt:.2f}s "
           f"({total_steps / dt:.0f} steps/s) frac_rjs={res.frac_rjs:.2f} "
           f"frac_precomp={res.frac_precomp:.2f} "
+          f"frac_stale={res.frac_stale:.2f} "
           f"(over {res.live_steps} live steps) "
           f"fallbacks={res.rjs_fallbacks}")
     print(f"[walk] kernel launches: {dict(build.LAUNCHES)}")

@@ -4,7 +4,11 @@
 Each program's ``get_weight`` is a batched torch rule; its declared bound
 and Eq. 12 sum repeat, operation for operation in float32, what the
 reference compiler's interval and enumeration passes compute from the
-jaxpr of the same rule, so the cost-model decisions match bitwise.
+jaxpr of the same rule, so the cost-model decisions match bitwise.  Its
+declared ``reads`` (and ``needs_dist``) stand for the reference's taint
+set: they decide the static regime and ``flexi_compiler.fuse_report``
+(deepwalk fuses with a node-local bound; node2vec's weight reads ``dist``,
+so it runs staged).
 """
 from __future__ import annotations
 

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where one step of the port's adaptive walk spends its time on the card.
+"""Where one step of the port's walks spends its time on the card.
 
     PYTHONPATH=src python tools/profile_port_step.py [--nodes N] [--steps 4] \
-        [--out-dir DIR]
+        [--out-dir DIR] [--fused METHOD ...]
 
 Builds the graph ``chip_smoke.py`` runs, with its constants and its
 mid-walk state (soc-LiveJournal1 scale by default, every node a query,
 8 warm-up steps), then traces
-``--steps`` more steps of ``WalkEngine.step`` per program with
-``torch.profiler`` (CPU + CUDA).  Prints, per program: wall milliseconds
-per step (host clock, synchronised), device-busy milliseconds per step
+``--steps`` more steps of ``WalkEngine.step`` per program (the adaptive
+node2vec and deepwalk engines) with ``torch.profiler`` (CPU + CUDA);
+``--fused`` instead traces one fused epoch of ``--steps`` steps (one K4
+launch) of deepwalk under each given method.  Prints, per engine: wall
+milliseconds per step (host clock, synchronised), device-busy ms per step
 (the sum of every device event's self time), the device idle share, and
 the device kernels and host operators that take the most time; with
 ``--out-dir`` the full tables go to ``DIR/profile_<program>.txt``.  Needs
@@ -35,10 +37,14 @@ def profile_program(eng, steps: int, out_dir=None) -> None:
     V = eng.graph.num_nodes
     state = chip_smoke.mid_walk_state(eng, 8)
     torch.cuda.synchronize()
+    fused = eng.step_exec_resolved == "fused"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
+        if fused:
+            eng.run_epoch_fn(state, epoch_len=steps,
+                             num_steps=chip_smoke.WALK_STEPS)
+        for _ in range(0 if fused else steps):
             state, _, _ = eng.step(state, chip_smoke.WALK_STEPS)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
@@ -48,6 +54,8 @@ def profile_program(eng, steps: int, out_dir=None) -> None:
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     name = eng.workload.name.split("[")[0]
+    if fused:
+        name += f"-{eng.config.method}-fused"
     print(f"[profile] {name}: {wall:.2f} ms/step wall, {busy:.2f} ms/step "
           f"device busy, device idle share {1 - busy / wall:.3f} "
           f"(torch.profiler, {steps} steps, {V} walkers)")
@@ -55,12 +63,12 @@ def profile_program(eng, steps: int, out_dir=None) -> None:
     for e in by_dev[:10]:
         print(f"[profile] {name} device: {e.key[:70]:70s} "
               f"{e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
-              f"x{e.count // steps}")
+              f"x{e.count / steps:g}")
     by_cpu = sorted(events, key=lambda e: -e.self_cpu_time_total)
     for e in by_cpu[:8]:
         print(f"[profile] {name} host:   {e.key[:60]:60s} "
               f"{e.self_cpu_time_total / 1e3 / steps:8.3f} ms/step "
-              f"x{e.count // steps}")
+              f"x{e.count / steps:g}")
     if out_dir is None:
         return
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -75,6 +83,9 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--out-dir", type=Path, default=None,
                     help="write the full profiler tables here")
+    ap.add_argument("--fused", nargs="+", default=None, metavar="METHOD",
+                    choices=tuple(chip_smoke.FUSED_METHODS.values()),
+                    help="trace one fused epoch of deepwalk per method")
     args = ap.parse_args()
     import torch
 
@@ -88,6 +99,11 @@ def main() -> int:
 
     graph = power_law_graph(args.nodes, chip_smoke.LJ_AVG_DEGREE,
                             weight_dist="uniform", seed=0).to("cuda")
+    if args.fused:
+        for method in args.fused:
+            profile_program(WalkEngine(graph, deepwalk(), EngineConfig(
+                method=method, step_exec="fused")), args.steps, args.out_dir)
+        return 0
     cfg = EngineConfig(method="adaptive",
                        jump_threshold=chip_smoke.JUMP_THRESHOLD)
     for program in (node2vec(), deepwalk()):
