@@ -35,11 +35,12 @@ Phases (any failure exits non-zero and prints no result line):
              step hands it (the state after 8 steps) under each program
              that launches it, with CUDA events; the kernel must agree
              with the plain version there as in phase 3.  K4: one timed
-             launch of 16 steps from the state after 8 steps, per regime;
-             its plain version on the same state, except the reservoir
-             regime's: its torch row scans (~10^11 edges per step here)
-             would take minutes per step, so both versions of that regime
-             are also timed on the phase-3 check walkers.
+             launch of 16 steps from the state after 8 steps, per regime,
+             held against its plain version on the same state; for the
+             reservoir regime, whose torch row scans take minutes per
+             step here (~10^11 edges), both versions run one step of all
+             walkers from that state, and the 16-step launch is timed
+             beside it.
 
 ``jump_threshold`` is lowered from the default 1024 to 8, the cost
 model's ``min_rjs_degree``: at uniform weights Eq. 11 sends every hub to
@@ -83,8 +84,9 @@ STAGED_NEEDS = {"ervs": ("ervs_select",), "erjs": ("erjs_select",),
                 "alias_precomp": ("alias_pick",)}
 # steps of the K4 launches checked (phase 3) and timed (phase 5)
 K4_EPOCH = 16
-# seed of the phase-3 check walkers of K4 and K5
-CHECK_SEED = 12
+# steps over which phase 5 holds K4's reservoir regime against its plain
+# version on every walker (the plain row scans take minutes per step)
+K4_RESERVOIR_PLAIN_EPOCH = 1
 
 
 def fail(msg: str) -> None:
@@ -362,17 +364,19 @@ def check_fused(graph, fused: dict, seed: int) -> None:
             args.update(tables=stale_every_third(eng.precomp))
             what = "every third row stale"
         p = eng.sampler_ctx.params
-        got = megastep.fused_epoch(graph, eng.workload, p, state0, **args)
-        want = megastep.fused_epoch_plain(graph, eng.workload, p, state0,
-                                          **args)
-        torch.cuda.synchronize()
+        got, ms = cuda_once(lambda: megastep.fused_epoch(
+            graph, eng.workload, p, state0, **args))
+        want, plain_ms = cuda_once(lambda: megastep.fused_epoch_plain(
+            graph, eng.workload, p, state0, **args))
         n_bad, unexplained = k4_mismatches(eng, state0, got, want, cfg.tile)
         flags = want[2]
         counts = {b: int(((flags >> i) & 1).sum()) for i, b in enumerate(
             ("live", "rjs", "fallback", "precomp", "stale"))}
         log(f"check fused_epoch_{kind} ({what}): {W} walkers x {K4_EPOCH} "
-            f"steps, flag bits {counts}; {n_bad} walkers differ from the "
-            f"plain version, all at reservoir near-ties: {unexplained == 0}")
+            f"steps, kernel {ms:.4f} ms (first launch), plain "
+            f"{plain_ms:.4f} ms, flag bits {counts}; {n_bad} walkers differ "
+            f"from the plain version, all at reservoir near-ties: "
+            f"{unexplained == 0}")
         if unexplained:
             fail(f"fused_epoch_{kind}: {unexplained} walkers differ from the "
                  f"plain version other than at a reservoir near-tie")
@@ -726,13 +730,16 @@ def k4_work(eng, state0, emitted, flags, args: dict):
     return nbytes, ops
 
 
-def time_fused(fused: dict, check_seed: int) -> dict:
+def time_fused(fused: dict) -> dict:
     """Phase 5b: one K4 launch of ``K4_EPOCH`` steps per regime from the
     state after 8 steps, and K5 at the step-8 lanes, each held against
-    its plain version as in phase 3."""
+    its plain version on the same state as in phase 3.  The reservoir
+    regime is held against its plain version over
+    ``K4_RESERVOIR_PLAIN_EPOCH`` steps of every walker, and its row reports
+    that comparison (kernel, plain and bound alike); its ``K4_EPOCH``-step
+    launch is timed beside it (``epoch16_ms``)."""
     import torch
     from repro_torch.core.precomp import alias_offsets
-    from repro_torch.core.types import WalkerState
     from repro_torch.kernels import megastep
     from repro_torch.kernels.alias import alias_pick
 
@@ -745,42 +752,29 @@ def time_fused(fused: dict, check_seed: int) -> dict:
                     rjs_max_rounds=cfg.rjs_max_rounds, epoch_len=K4_EPOCH,
                     num_steps=WALK_STEPS, bmax=eng._fused_bmax,
                     tables=eng.precomp)
+        launch = lambda: megastep.fused_epoch(g, eng.workload, p, state,
+                                              **args)
         # K4 already ran in phases 3 and 4: this launch is warm
-        got, ms = cuda_once(lambda: megastep.fused_epoch(
-            g, eng.workload, p, state, **args))
-        nbytes, ops = k4_work(eng, state, got[1], got[2], args)
-        b_ms, b_by = bound(nbytes, ops)
-        lanes = int(state.cur.numel())
+        got, ms = cuda_once(launch)
+        b_ms, b_by = bound(*k4_work(eng, state, got[1], got[2], args))
+        extra = {}
         if kind == "reservoir":
-            # the plain row scans would take minutes per step at this
-            # shape: time both versions on the phase-3 check walkers
-            cur, prev, keys = walkers(g, 4096, check_seed)
-            small = WalkerState(cur=cur, prev=prev,
-                                step=torch.zeros_like(cur),
-                                alive=torch.ones_like(cur, dtype=torch.bool),
-                                rng=keys)
-            mine = megastep.fused_epoch(g, eng.workload, p, small, **args)
-            _, check_ms = cuda_once(lambda: megastep.fused_epoch(
-                g, eng.workload, p, small, **args))
-            want, plain_ms = cuda_once(lambda: megastep.fused_epoch_plain(
-                g, eng.workload, p, small, **args))
-            n_bad, unexplained = k4_mismatches(eng, small, mine, want,
-                                               cfg.tile)
-            plain_lanes = int(cur.numel())
-        else:
-            want, plain_ms = cuda_once(lambda: megastep.fused_epoch_plain(
-                g, eng.workload, p, state, **args))
-            n_bad, unexplained = k4_mismatches(eng, state, got, want,
-                                               cfg.tile)
-            check_ms, plain_lanes = None, lanes
+            extra = dict(epoch16_ms=ms, epoch16_bound_ms=b_ms)
+            args.update(epoch_len=K4_RESERVOIR_PLAIN_EPOCH)
+            got, ms = cuda_once(launch)
+            b_ms, b_by = bound(*k4_work(eng, state, got[1], got[2], args))
+        want, plain_ms = cuda_once(lambda: megastep.fused_epoch_plain(
+            g, eng.workload, p, state, **args))
+        n_bad, unexplained = k4_mismatches(eng, state, got, want, cfg.tile)
+        del got, want
         if unexplained:
             fail(f"fused_epoch_{kind} at main-path shapes: {unexplained} "
                  f"walkers differ from the plain version other than at a "
                  f"reservoir near-tie")
         rows[f"fused_epoch_{kind}", "deepwalk"] = dict(
-            lanes=lanes, ms=ms, plain_ms=plain_ms, plain_lanes=plain_lanes,
-            check_ms=check_ms, max_abs_err=0, mismatches=n_bad,
-            bound_ms=b_ms, bound_by=b_by)
+            lanes=int(state.cur.numel()), steps=args["epoch_len"], ms=ms,
+            plain_ms=plain_ms, max_abs_err=0, mismatches=n_bad,
+            bound_ms=b_ms, bound_by=b_by, **extra)
         if kind == "precomp_alias":
             keys_all = state.stream_keys()
             live = state.alive & (state.step < WALK_STEPS)
@@ -799,17 +793,17 @@ def time_fused(fused: dict, check_seed: int) -> dict:
             n = float(idx.numel())
             b_ms, b_by = bound(52.0 * n, n * (THREEFRY_OPS + 10))
             rows["alias_pick", "deepwalk"] = dict(
-                lanes=int(n), ms=ms, plain_ms=plain_ms, plain_lanes=int(n),
-                check_ms=None, max_abs_err=0, mismatches=0, bound_ms=b_ms,
-                bound_by=b_by)
+                lanes=int(n), ms=ms, plain_ms=plain_ms, max_abs_err=0,
+                mismatches=0, bound_ms=b_ms, bound_by=b_by)
     for (name, pname), r in rows.items():
-        extra = (f" (plain on {r['plain_lanes']} check walkers, where the "
-                 f"kernel takes {r['check_ms']:.4f} ms)"
-                 if r["check_ms"] is not None else "")
-        log(f"time {name} [{pname}]: {r['lanes']} lanes, kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{extra}, bound "
+        steps = f" x {r['steps']} steps" if "steps" in r else ""
+        extra = (f"; its {K4_EPOCH}-step launch {r['epoch16_ms']:.4f} ms, "
+                 f"bound {r['epoch16_bound_ms']:.4f} ms"
+                 if "epoch16_ms" in r else "")
+        log(f"time {name} [{pname}]: {r['lanes']} lanes{steps}, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
-            f"walkers differ")
+            f"walkers differ{extra}")
     return rows
 
 
@@ -901,7 +895,7 @@ def main() -> int:
     check_kernels(graph, n2v, dw, seed=11)
     log("check: erjs_select and its_search bitwise equal to their plain "
         "versions")
-    check_fused(graph, fused, seed=CHECK_SEED)
+    check_fused(graph, fused, seed=12)
     check_small_engine()
 
     # 4. the main path, one run per program, then each fused method
@@ -926,7 +920,7 @@ def main() -> int:
 
     # 5. kernel times at main-path shapes
     rows = time_kernels((n2v, dw), args.reps)
-    rows.update(time_fused(fused, check_seed=CHECK_SEED))
+    rows.update(time_fused(fused))
     kernels = []
     for (name, pname), n in launches.items():
         if (name, pname) not in rows:
@@ -941,8 +935,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "lanes": r["lanes"], "mismatches": r["mismatches"],
-            **{k: r[k] for k in ("plain_lanes", "check_ms")
-               if r.get(k) is not None}})
+            **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms")
+               if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

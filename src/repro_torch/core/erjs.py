@@ -21,10 +21,6 @@ from repro_torch.graphs.csr import CSRGraph
 from repro_torch.kernels.prng import fold_in, uniform
 
 
-def _fold_uniform(keys: torch.Tensor, counter: int) -> torch.Tensor:
-    return uniform(fold_in(keys, counter))
-
-
 def erjs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
               keys: torch.Tensor, bound: torch.Tensor,
               trials_per_round: int = 8, max_rounds: int = 16,
@@ -48,9 +44,11 @@ def erjs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
     for r in range(max_rounds):
         if not bool((feasible & ~done).any()):
             break
+        # the round's 2K uniforms at once: [W, 2K], counter r·2K + column
+        ctr = torch.arange(r * 2 * K, (r + 1) * 2 * K, device=cur.device)
+        u = uniform(fold_in(keys[:, None, :], ctr[None, :]))
         for k in range(K):
-            u_idx = _fold_uniform(keys, r * (2 * K) + 2 * k)
-            u_acc = _fold_uniform(keys, r * (2 * K) + 2 * k + 1)
+            u_idx, u_acc = u[:, 2 * k], u[:, 2 * k + 1]
             offset = torch.minimum((u_idx * degf).to(torch.int64),
                                    (deg - 1).clamp_min(0))
             ctx, valid = single_edge_ctx(graph, program, cur, prev, step,

@@ -55,10 +55,11 @@ def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
     Ties keep the first offset holding the maximum key.
 
     Each pass takes the walkers whose rows reach its first tile and as
-    many whole tiles as keep the block under ``_BLOCK_ELEMS`` entries, so
+    many whole tiles as keep a block under ``_BLOCK_ELEMS`` entries, so
     a few hubs among many short rows cost their own length, not every
-    walker's.  The first maximum of a block is the first maximum of its
-    tiles taken in order, so blocks change no choice."""
+    walker's; when even one tile of those walkers is larger, the pass
+    takes them in chunks of at most that many entries.  The first maximum of a block is the first
+    maximum of its tiles taken in order, so blocks change no choice."""
     W = cur.shape[0]
     if active is None:
         active = torch.ones(W, dtype=torch.bool, device=cur.device)
@@ -68,26 +69,27 @@ def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
     best_nbr = torch.full((W,), -1, dtype=torch.int64, device=cur.device)
     t = 0
     while t < needed:
-        lanes = (active & (deg > t * tile)).nonzero().squeeze(1)
-        k = max(1, min(needed - t, _BLOCK_ELEMS // (lanes.numel() * tile)))
+        reach = (active & (deg > t * tile)).nonzero().squeeze(1)
+        k = max(1, min(needed - t, _BLOCK_ELEMS // (reach.numel() * tile)))
         width = min(k * tile, top - t * tile)
-        c = cur[lanes]
-        ctx, mask = tile_ctx(graph, program, c, prev[lanes], step[lanes],
-                             t * tile, width)
-        w = eval_weights(program, params, ctx, mask)
-        if k == 1:  # only the lanes some row reaches
-            u = _tile_uniforms(keys[lanes], t, width)
-        else:
-            tiles = torch.arange(t, t + k, device=cur.device)
-            u = uniform(fold_in(keys[lanes, None, :], tiles[None, :]), tile)
-            u = u.reshape(lanes.numel(), k * tile)[:, :width]
-        lk = torch.where(mask, _log_keys(u, w), NEG_INF)
-        b = lk.argmax(dim=1, keepdim=True)
-        blk_lk = lk.gather(1, b)[:, 0]
-        upd = blk_lk > best_lk[lanes]
-        best_lk[lanes] = torch.where(upd, blk_lk, best_lk[lanes])
-        best_nbr[lanes] = torch.where(upd, ctx.nbr.gather(1, b)[:, 0],
-                                      best_nbr[lanes])
+        tiles = torch.arange(t, t + k, device=cur.device)
+        # lane j of a tile draws on counter j, so a block of one tile
+        # narrower than ``tile`` draws only its own lanes
+        per_tile = min(tile, width)
+        for lanes in reach.split(max(1, _BLOCK_ELEMS // (k * per_tile))):
+            ctx, mask = tile_ctx(graph, program, cur[lanes], prev[lanes],
+                                 step[lanes], t * tile, width)
+            w = eval_weights(program, params, ctx, mask)
+            u = uniform(fold_in(keys[lanes, None, :], tiles[None, :]),
+                        per_tile)
+            u = u.reshape(lanes.numel(), k * per_tile)[:, :width]
+            lk = torch.where(mask, _log_keys(u, w), NEG_INF)
+            b = lk.argmax(dim=1, keepdim=True)
+            blk_lk = lk.gather(1, b)[:, 0]
+            upd = blk_lk > best_lk[lanes]
+            best_lk[lanes] = torch.where(upd, blk_lk, best_lk[lanes])
+            best_nbr[lanes] = torch.where(upd, ctx.nbr.gather(1, b)[:, 0],
+                                          best_nbr[lanes])
         t += k
     return torch.where(active, best_nbr, -2)
 

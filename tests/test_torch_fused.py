@@ -57,13 +57,27 @@ def graphs():
     return g, pg
 
 
-def _run_ref(g, method, mutate=None, **kw):
+def _run_ref(g, method, **kw):
     eng = RefEngine(g, ref_make_workload("deepwalk"),
                     RefConfig(method=method, step_exec="staged", **kw))
-    if mutate is not None:
-        mutate(eng)
     return eng, eng.run(np.arange(V), num_steps=STEPS, batch=BATCH,
                         epoch_len=EPOCH)
+
+
+@pytest.fixture(scope="module")
+def ref_staged(graphs):
+    """(engine, staged run) of the reference per (method, tile), made once
+    per module: its compiles dominate this file's time.  No rows are
+    rebuilt (``rebuild_budget=0``), which changes nothing until a test
+    marks rows stale on the engine — after its clean run was taken."""
+    cache = {}
+
+    def get(method, tile):
+        if (method, tile) not in cache:
+            cache[method, tile] = _run_ref(graphs[0], method, tile=tile,
+                                           rebuild_budget=0)
+        return cache[method, tile]
+    return get
 
 
 def _port_engine(pg, method, step_exec="fused", **kw):
@@ -112,11 +126,10 @@ def test_fused_kind_matches_reference():
 
 
 @pytest.mark.parametrize("step_exec", ["auto", "fused", "staged"])
-def test_step_exec_resolved_matches_reference(step_exec):
+def test_step_exec_resolved_matches_reference(graphs, step_exec):
     """Every cell of the port, plus a tile outside the kernel geometry; on
     the CPU "auto" resolves staged in both packages."""
-    g = ref_power_law(60, 5, seed=1)
-    pg = power_law_graph(60, 5, seed=1)
+    g, pg = graphs
     cells = [(m, p, w, 32) for m in available_samplers()
              for p, w in PROGRAMS] + [("ervs", "deepwalk", True, 6)]
     for method, name, weighted, tile in cells:
@@ -144,23 +157,25 @@ def test_bake_bmax_matches_reference(graphs, weighted):
 
 @pytest.mark.parametrize("tile", [32, 256])
 @pytest.mark.parametrize("method", METHODS)
-def test_fused_runs_match_reference_staged(graphs, method, tile):
-    g, pg = graphs
-    _, ref = _run_ref(g, method, tile=tile)
+def test_fused_runs_match_reference_staged(graphs, ref_staged, method,
+                                           tile):
+    _, pg = graphs
+    _, ref = ref_staged(method, tile)
     got = _port_engine(pg, method, tile=tile).run(
         np.arange(V), num_steps=STEPS, batch=BATCH, epoch_len=EPOCH)
     _assert_same(ref, got)
 
 
 @pytest.mark.parametrize("method", ["its_precomp", "alias_precomp"])
-def test_stale_rows_take_the_reservoir(graphs, method):
+def test_stale_rows_take_the_reservoir(graphs, ref_staged, method):
     """Every third row marked stale by the reference's ``update_graph``
     (same weights, no rebuilds); the port gets the same bitmap."""
     g, pg = graphs
     rows = np.arange(0, V, 3)
-    ref_eng, ref = _run_ref(g, method, rebuild_budget=0, tile=32,
-                            mutate=lambda e: e.update_graph(
-                                g, invalidated=rows))
+    ref_eng, _ = ref_staged(method, 32)
+    ref_eng.update_graph(g, invalidated=rows)
+    ref = ref_eng.run(np.arange(V), num_steps=STEPS, batch=BATCH,
+                      epoch_len=EPOCH)
     t = ref_eng.precomp
     eng = _port_engine(pg, method, tile=32)
     eng.precomp = interop.tables_from_arrays(
