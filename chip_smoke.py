@@ -9,38 +9,57 @@ Phases (any failure exits non-zero and prints no result line):
 1. build   — compile K1–K5 from ``src/repro_torch/kernels/csrc`` with nvcc
              (one process per source, in parallel).
 2. graph   — ``power_law_graph`` at soc-LiveJournal1 scale (4,847,571
-             nodes, average degree 14, uniform weights, seed 0), the node
-             statistics and deepwalk's ITS tables; then one deepwalk engine per
-             fused regime (methods ervs, erjs, its_precomp, alias_precomp,
-             ``step_exec="fused"``).
+             nodes, average degree 14, uniform weights, 5 uniform edge
+             labels, seed 0); one adaptive engine per registry program
+             (ITS tables for the static deepwalk and ppr_nibble); one
+             engine per fused regime (methods ervs, erjs, its_precomp,
+             alias_precomp, ``step_exec="fused"``) for deepwalk and for
+             ppr_nibble (the hooked program).  Each engine builds its own
+             tables; node statistics are computed once per label count
+             (the graph keeps them).
 3. check   — each kernel against its plain PyTorch version on the card, on
              a few thousand walkers of the full graph (hubs included):
              K2, K3 and K5 bitwise; K1 bitwise or differing only at
-             near-ties (two float32 keys within 2 ulp); K4 for one epoch of
-             16 steps in each regime, with forced eRJS fallbacks
+             near-ties (two float32 keys within 2 ulp); K1 and K2 under
+             every program's device rule, on walkers 3 steps into their
+             walks (so visited_avoiding's rings are not empty) on rows of
+             at most 4,096 (phase 5 holds them on hubs); K4 for one
+             epoch of 16 steps in each regime, hook-free (deepwalk) and
+             hooked (ppr_nibble), with forced eRJS fallbacks
              (rjs_trials=1, rjs_max_rounds=1) and every third row stale:
-             paths, end state and flag words bitwise, except that a path
-             may part at a reservoir near-tie; then the whole engine on a
-             small graph, kernels (cuda) against plain versions (cpu).
-4. main    — ``WalkEngine(graph, program, EngineConfig(method="adaptive",
-             jump_threshold=8)).run(np.arange(V), num_steps=80)`` for
-             node2vec, then deepwalk; then deepwalk with each fused method,
-             ``step_exec="fused"`` and again ``"staged"``: the fused run
-             must resolve "fused", launch K4 and give the staged run's
-             paths and telemetry bit for bit.  Launch counts are reset just
-             before each run and read just after; ``run()`` reports its own
-             host-clock split (setup, admit, steps, harvest).  Every emitted
-             step must be an edge and stopped lanes must emit -1.
+             paths, end state (mass included) and flag words bitwise,
+             except that a path may part at a reservoir near-tie; then the
+             whole engine on a small graph, kernels (cuda) against plain
+             versions (cpu).
+4. main    — ``WalkEngine(graph, make_workload(name), EngineConfig(
+             method="adaptive", jump_threshold=8)).run(np.arange(V),
+             num_steps=80)`` for every registry program (node2vec,
+             deepwalk, node2vec_unweighted, metapath, metapath_unweighted,
+             2ndpr, visited_avoiding, ppr_nibble); then each fused method
+             with ``step_exec="fused"`` and again ``"staged"``, for
+             ppr_nibble over 80 steps and for deepwalk over
+             ``DEEPWALK_PAIR_STEPS`` (16, cut from 80 to keep the smoke
+             inside its time limit): the fused run must resolve "fused",
+             launch K4 and give the staged run's paths and telemetry bit
+             for bit.  Launch counts are reset just before each run and
+             read just after; ``run()`` reports its own host-clock split
+             (setup, admit, steps, harvest).  Every emitted step must be
+             an edge and stopped lanes must emit -1.
 5. timing  — each kernel and its plain version on the lanes one main-path
-             step hands it (the state after 8 steps) under each program
-             that launches it, with CUDA events; the kernel must agree
-             with the plain version there as in phase 3.  K4: one timed
-             launch of 16 steps from the state after 8 steps, per regime,
-             held against its plain version on the same state; for the
-             reservoir regime, whose torch row scans take minutes per
-             step here (~10^11 edges), both versions run one step of all
-             walkers from that state, and the 16-step launch is timed
-             beside it.
+             step hands it (the state after ``MID_STEP`` steps: 8, or 4
+             for the short MetaPath and PPR-Nibble walks) under each
+             program whose main-path run launched it, with CUDA events;
+             the kernel must agree with the plain version there as in
+             phase 3.  A kernel that gets no lane at that step is timed at
+             the first later step that gives it lanes (its row's
+             ``step``); none at all fails.  K4: one
+             timed launch of 16 steps per regime from the state after 8
+             steps (deepwalk) or 4 steps (ppr_nibble, whose lanes are
+             still alive there), held against its plain version on the
+             same state; for the reservoir regime, whose torch row scans
+             take minutes per step here (~10^11 edges for deepwalk), both
+             versions run one step of all walkers from that state, and the
+             16-step launch is timed beside it.
 
 ``jump_threshold`` is lowered from the default 1024 to 8, the cost
 model's ``min_rjs_degree``: at uniform weights Eq. 11 sends every hub to
@@ -50,13 +69,14 @@ model could have sent to eRJS but did not, and plain eRVS the rows
 shorter than eRJS's minimum.
 
 The line before the last is a JSON object with one entry per kernel and
-program (``"ervs_select/deepwalk"``, ``"fused_epoch_reservoir/deepwalk"``,
+program (``"ervs_select/metapath"``, ``"fused_epoch_reservoir/ppr_nibble"``,
 ...); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,10 +94,35 @@ PEAK_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # five key injections), counted at the float32 rate above, since the
 # H100's peak-rate table used here lists no 32-bit integer rate
 THREEFRY_OPS = 122
-# the fused regimes and the deepwalk method that runs each
+# kernels each program's adaptive main-path run must launch
+ADAPTIVE_NEEDS = {
+    "node2vec": ("ervs_select", "ervs_jump_select", "erjs_select"),
+    "deepwalk": ("its_search", "ervs_select"),
+    "node2vec_unweighted": ("ervs_select", "erjs_select"),
+    "metapath": ("ervs_select", "ervs_jump_select", "erjs_select"),
+    "metapath_unweighted": ("ervs_select", "ervs_jump_select",
+                            "erjs_select"),
+    "2ndpr": ("ervs_select", "ervs_jump_select", "erjs_select"),
+    "visited_avoiding": ("ervs_select", "ervs_jump_select", "erjs_select"),
+    "ppr_nibble": ("its_search", "ervs_select"),
+}
+# programs whose weight binary-searches the previous node's row per edge
+SECOND_ORDER = ("node2vec", "node2vec_unweighted", "2ndpr",
+                "visited_avoiding")
+# steps before the main-path state phase 5 times a program's kernels at:
+# MetaPath walks dead-end and PPR-Nibble walks stop early
+MID_STEP = {name: 4 if name.startswith("metapath") or name == "ppr_nibble"
+            else 8 for name in ADAPTIVE_NEEDS}
+# the fused regimes and the method that runs each
 FUSED_METHODS = {"reservoir": "ervs", "rejection": "erjs",
                  "precomp_its": "its_precomp",
                  "precomp_alias": "alias_precomp"}
+# the programs run fused against staged: the hook-free deepwalk and the
+# hooked ppr_nibble
+FUSED_PROGRAMS = ("deepwalk", "ppr_nibble")
+# depth of deepwalk's fused / staged pairs: 16 of its 80 steps, to keep
+# the smoke inside its time limit (ppr_nibble's pairs walk all 80)
+DEEPWALK_PAIR_STEPS = 16
 # kernels each staged fused-method run must launch
 STAGED_NEEDS = {"ervs": ("ervs_select",), "erjs": ("erjs_select",),
                 "its_precomp": ("its_search",),
@@ -94,8 +139,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[smoke] {msg}", flush=True)
+    print(f"[smoke {time.perf_counter() - _START:7.1f}s] {msg}", flush=True)
 
 
 def probes(deg):
@@ -181,30 +229,34 @@ def node_offsets(graph, cur, nodes):
 
 
 def k1_mismatches(graph, program, params, cur, prev, keys, got, want,
-                  tile: int, jump: bool):
+                  tile: int, jump: bool, step=None, wstate=None):
     """(mismatches, unexplained): walkers where the kernel and the plain
-    version chose differently, and those of them that are not near-ties."""
+    version chose differently, and those of them that are not near-ties
+    (``step`` defaults to 0; ``wstate`` is the walkers' program state)."""
     import torch
     from repro_torch.core import ervs as ervs_mod
+    from repro_torch.core.types import wstate_rows
 
     bad = (got != want).nonzero().squeeze(1)
     if not bad.numel():
         return 0, 0
-    step = torch.zeros_like(cur[bad])
-    c, p, k = cur[bad], prev[bad], keys[bad]
+    step = torch.zeros_like(cur) if step is None else step
+    c, p, k, t = cur[bad], prev[bad], keys[bad], step[bad]
+    ws = wstate_rows(wstate, bad)
     if jump:
-        lk, _ = ervs_mod.jump_lanes(graph, program, params, c, p, step, k,
-                                    tile, torch.ones_like(c, dtype=torch.bool))
+        lk, _ = ervs_mod.jump_lanes(graph, program, params, c, p, t, k,
+                                    tile, torch.ones_like(c, dtype=torch.bool),
+                                    ws)
         top2 = lk.topk(2, dim=1).values
         near = ervs_mod.within_ulps(top2[:, 0], top2[:, 1])
     else:
         dev = cur.device
         oa = torch.tensor(node_offsets(graph, c, got[bad]), device=dev)
         ob = torch.tensor(node_offsets(graph, c, want[bad]), device=dev)
-        ka = ervs_mod.offset_keys_f64(graph, program, params, c, p, step, k,
-                                      oa, tile)
-        kb = ervs_mod.offset_keys_f64(graph, program, params, c, p, step, k,
-                                      ob, tile)
+        ka = ervs_mod.offset_keys_f64(graph, program, params, c, p, t, k,
+                                      oa, tile, ws)
+        kb = ervs_mod.offset_keys_f64(graph, program, params, c, p, t, k,
+                                      ob, tile, ws)
         near = ervs_mod.within_ulps(ka, kb)
     return int(bad.numel()), int((~near).sum())
 
@@ -265,6 +317,78 @@ def check_kernels(graph, n2v, dw, seed: int) -> None:
                      f"differences are not near-ties")
 
 
+def program_walkers(eng, n: int, seed: int, steps: int = 3,
+                    max_deg: int = 4096):
+    """n check walkers of ``eng``'s program (hubs and random nodes),
+    ``steps`` staged steps into their walks, the lanes still live there on
+    rows of at most ``max_deg`` (the plain versions scan tile by tile;
+    phase 5 holds the kernels on hub rows at main-path shapes):
+    (cur, prev, step, per-step keys, program state, bound)."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.core.types import WalkerState, wstate_rows
+    from repro_torch.kernels.prng import key_data
+
+    cur, _, _ = walkers(eng.graph, n, seed, max_deg=4096)
+    ids = torch.arange(n, device=cur.device)
+    state = WalkerState.create(cur, key_data(seed),
+                               wstate=eng.workload.init_wstate_batch(ids))
+    for _ in range(steps):
+        state, _, _ = eng.step(state, WALK_STEPS)
+    deg = degrees_of(eng.graph, state.cur)
+    idx = (state.alive & (deg > 0) & (deg <= max_deg)).nonzero().squeeze(1)
+    bnd = eng.sampler_ctx.estimates(state).bound_max
+    return (state.cur[idx], state.prev[idx], state.step[idx],
+            state.stream_keys()[idx], wstate_rows(state.wstate, idx),
+            bnd[idx].contiguous())
+
+
+def check_rules(adaptive: dict, seed: int) -> None:
+    """Phase 3a: K1 (plain and jump) and K2 under each program's device
+    rule against their plain versions, on walkers 3 steps in (rows of at
+    most 4,096)."""
+    import torch
+    from repro_torch.core import erjs as erjs_mod
+    from repro_torch.core import ervs as ervs_mod
+    from repro_torch.kernels.erjs import erjs_select
+    from repro_torch.kernels.ervs import ervs_select
+
+    for name, eng in adaptive.items():
+        if name in ("node2vec", "deepwalk"):
+            continue  # check_kernels holds them
+        g, cfg, prog = eng.graph, eng.config, eng.workload
+        p = eng.sampler_ctx.params
+        cur, prev, step, keys, ws, bnd = program_walkers(eng, 4096, seed)
+        for jump in (False, True):
+            kname = "ervs_jump_select" if jump else "ervs_select"
+            plain = ervs_mod.ervs_jump_step if jump else ervs_mod.ervs_step
+            got = ervs_select(g, prog, p, cur, prev, step, keys,
+                              tile=cfg.tile, jump=jump, wstate=ws)
+            want = plain(g, prog, p, cur, prev, step, keys, tile=cfg.tile,
+                         wstate=ws)
+            n_bad, unexplained = k1_mismatches(
+                g, prog, p, cur, prev, keys, got, want, cfg.tile, jump,
+                step, ws)
+            log(f"check {kname} [{name}]: {cur.numel()} walkers 3 steps "
+                f"in, {n_bad} differ from the plain version, all near-ties: "
+                f"{unexplained == 0}")
+            if unexplained:
+                fail(f"{kname} [{name}]: {unexplained} differences are not "
+                     f"near-ties")
+        got = erjs_select(g, prog, p, cur, prev, step, keys, bnd,
+                          trials=cfg.rjs_trials, rounds=cfg.rjs_max_rounds,
+                          wstate=ws)
+        want = erjs_mod.erjs_step(g, prog, p, cur, prev, step, keys, bnd,
+                                  cfg.rjs_trials, cfg.rjs_max_rounds,
+                                  wstate=ws)
+        for a, b, what in zip(got, want, ("next", "fallback", "trials")):
+            if not torch.equal(a, b):
+                fail(f"erjs_select [{name}]: {what} differs from erjs_step "
+                     f"on {int((a != b).sum())} of {cur.numel()} walkers")
+        log(f"check erjs_select [{name}]: {cur.numel()} walkers, bitwise "
+            f"equal to erjs_step ({int(got[0].ge(0).sum())} accepted)")
+
+
 def stale_every_third(tables):
     """The same tables with every third row marked stale."""
     import dataclasses
@@ -298,6 +422,8 @@ def k4_mismatches(eng, state0, got, want, tile: int):
     (s1, e1, f1), (s2, e2, f2) = got, want
     same_end = ((s1.cur == s2.cur) & (s1.prev == s2.prev)
                 & (s1.step == s2.step) & (s1.alive == s2.alive))
+    for a, b in zip(s1.wstate or (), s2.wstate or ()):
+        same_end &= (a == b).reshape(a.shape[0], -1).all(dim=1)
     rows = ((e1 != e2) | (f1 != f2)).any(dim=1) | ~same_end
     bad = rows.nonzero().squeeze(1).tolist()
     unexplained = 0
@@ -325,9 +451,10 @@ def k4_mismatches(eng, state0, got, want, tile: int):
     return len(bad), unexplained
 
 
-def check_fused(graph, fused: dict, seed: int) -> None:
-    """Phase 3c: K5 and every K4 instance against their plain versions on
-    the card, on check walkers of the full graph (hubs included)."""
+def check_fused(graph, fused: dict, pname: str, seed: int) -> None:
+    """Phase 3c: K5 and every K4 instance of program ``pname`` (``fused``:
+    its engine per regime) against their plain versions on the card, on
+    check walkers of the full graph (hubs included)."""
     import torch
     from repro_torch.core.precomp import alias_offsets
     from repro_torch.core.types import WalkerState
@@ -341,15 +468,17 @@ def check_fused(graph, fused: dict, seed: int) -> None:
     if not torch.equal(got, want):
         fail(f"alias_pick differs from alias_offsets on "
              f"{int((got != want).sum())} of {cur.numel()} walkers")
-    log(f"check alias_pick: {cur.numel()} walkers, bitwise equal to "
-        f"alias_offsets")
+    log(f"check alias_pick [{pname}]: {cur.numel()} walkers, bitwise equal "
+        f"to alias_offsets")
     W = cur.numel()
     step = torch.zeros_like(cur)
     step[::7] = WALK_STEPS - 5  # these stop inside the epoch
     alive = torch.ones_like(cur, dtype=torch.bool)
     alive[::11] = False
-    state0 = WalkerState(cur=cur, prev=prev, step=step, alive=alive,
-                         rng=keys)
+    state0 = WalkerState(
+        cur=cur, prev=prev, step=step, alive=alive, rng=keys,
+        wstate=fused["reservoir"].workload.init_wstate_batch(
+            torch.arange(W, device=cur.device)))
     for kind, eng in fused.items():
         cfg = eng.config
         args = dict(kind=kind, tile=cfg.tile, rjs_trials=cfg.rjs_trials,
@@ -372,20 +501,25 @@ def check_fused(graph, fused: dict, seed: int) -> None:
         flags = want[2]
         counts = {b: int(((flags >> i) & 1).sum()) for i, b in enumerate(
             ("live", "rjs", "fallback", "precomp", "stale"))}
-        log(f"check fused_epoch_{kind} ({what}): {W} walkers x {K4_EPOCH} "
-            f"steps, kernel {ms:.4f} ms (first launch), plain "
-            f"{plain_ms:.4f} ms, flag bits {counts}; {n_bad} walkers differ "
-            f"from the plain version, all at reservoir near-ties: "
-            f"{unexplained == 0}")
+        stopped = int((state0.alive & ~want[0].alive).sum())
+        log(f"check fused_epoch_{kind} [{pname}] ({what}): {W} walkers x "
+            f"{K4_EPOCH} steps, kernel {ms:.4f} ms (first launch), plain "
+            f"{plain_ms:.4f} ms, flag bits {counts}, {stopped} walkers "
+            f"stopped; {n_bad} walkers differ from the plain version, all "
+            f"at reservoir near-ties: {unexplained == 0}")
         if unexplained:
-            fail(f"fused_epoch_{kind}: {unexplained} walkers differ from the "
-                 f"plain version other than at a reservoir near-tie")
+            fail(f"fused_epoch_{kind} [{pname}]: {unexplained} walkers "
+                 f"differ from the plain version other than at a reservoir "
+                 f"near-tie")
         if kind == "rejection" and not counts["fallback"]:
             fail("the forced-fallback check of fused_epoch_rejection made "
                  "no fallback")
         if kind.startswith("precomp") and not counts["stale"]:
             fail(f"the stale-row check of fused_epoch_{kind} served no "
                  f"stale row")
+        if eng.workload.has_hooks and not stopped:
+            fail(f"fused_epoch_{kind} [{pname}]: no walker stopped, so the "
+                 f"hook branch was not exercised")
 
 
 def check_small_engine() -> None:
@@ -399,9 +533,9 @@ def check_small_engine() -> None:
     g = power_law_graph(3000, 8, seed=5)
     starts = np.arange(g.num_nodes)
     cells = [(name, dict(method="adaptive", jump_threshold=JUMP_THRESHOLD))
-             for name in ("node2vec", "deepwalk")]
-    cells += [("deepwalk", dict(method=m, step_exec="fused"))
-              for m in FUSED_METHODS.values()]
+             for name in ADAPTIVE_NEEDS]
+    cells += [(name, dict(method=m, step_exec="fused"))
+              for name in FUSED_PROGRAMS for m in FUSED_METHODS.values()]
     for name, kw in cells:
         res = {}
         for dev in ("cuda", "cpu"):
@@ -439,7 +573,9 @@ def check_paths(graph, paths) -> None:
 
 
 # ------------------------------------------------------------- main path
-def main_path(eng, steps: int, need: tuple) -> dict:
+def main_path(eng, pname: str, steps: int, need: tuple) -> dict:
+    """Phase 4a: one adaptive ``run()`` of program ``pname`` at full
+    width; returns its launch counts."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
@@ -455,29 +591,31 @@ def main_path(eng, steps: int, need: tuple) -> dict:
     counts = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     live = res.live_steps
-    name = eng.workload.name.split("[")[0]
-    log(f"main [{name}]: {V} walkers x {steps} steps in "
-        f"{dt:.2f} s, {live} live walker-steps, {live / dt:.4g} "
-        f"walker-steps/s; frac_rjs={res.frac_rjs:.4f} "
+    emitted = int((res.paths[:, 1:] >= 0).sum())
+    log(f"main [{pname}]: {V} walkers x {steps} steps in "
+        f"{dt:.2f} s, {live} live walker-steps ({emitted} emitted), "
+        f"{live / dt:.4g} walker-steps/s; frac_rjs={res.frac_rjs:.4f} "
         f"frac_precomp={res.frac_precomp:.4f} "
         f"frac_reservoir={1 - res.frac_rjs - res.frac_precomp:.4f} "
         f"fallbacks={res.rjs_fallbacks}; peak device memory "
         f"{peak / 2**30:.2f} GiB; launches {counts}")
     split = ", ".join(f"{k} {v:.3f} s" for k, v in res.seconds.items())
-    log(f"main [{name}]: run() phases (host clock): {split}; "
+    log(f"main [{pname}]: run() phases (host clock): {split}; "
         f"{res.seconds['steps'] / steps * 1e3:.2f} ms per step")
     for name in need:
         if counts[name] <= 0:
-            fail(f"main path [{eng.workload.name}] never launched {name}")
+            fail(f"main path [{pname}] never launched {name}")
     check_paths(eng.graph, res.paths)
-    log(f"main [{eng.workload.name}]: every emitted step is an edge, "
-        f"stopped lanes emit -1")
+    log(f"main [{pname}]: every emitted step is an edge, stopped lanes "
+        f"emit -1")
     return counts
 
 
-def fused_main_path(fused_eng, staged_eng, steps: int) -> int:
-    """Phase 4b: one fused run and one staged run of a deepwalk method;
-    returns the fused run's K4 launches."""
+def fused_main_path(fused_eng, staged_eng, pname: str, steps: int):
+    """Phase 4b: one fused run and one staged run of a method; returns
+    (the fused run's K4 launches, the staged run's launch counts).  For a
+    program with state, the end state of both (a scheduler epoch of the
+    whole walk, as ``run()`` drives it) must match too."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
@@ -485,7 +623,7 @@ def fused_main_path(fused_eng, staged_eng, steps: int) -> int:
     kind = fused_eng._fused_kind
     method = fused_eng.config.method
     if fused_eng.step_exec_resolved != "fused":
-        fail(f"deepwalk/{method} with step_exec='fused' resolved "
+        fail(f"{pname}/{method} with step_exec='fused' resolved "
              f"{fused_eng.step_exec_resolved!r}")
     V = fused_eng.graph.num_nodes
     res, counts = {}, {}
@@ -501,8 +639,9 @@ def fused_main_path(fused_eng, staged_eng, steps: int) -> int:
         counts[ex] = {k: n for k, n in build.LAUNCHES.items() if n}
         res[ex] = r
         split = ", ".join(f"{k} {v:.3f} s" for k, v in r.seconds.items())
-        log(f"main [deepwalk/{method}, {ex}]: {V} walkers x {steps} steps "
-            f"in {dt:.2f} s, {r.live_steps / dt:.4g} walker-steps/s; "
+        log(f"main [{pname}/{method}, {ex}]: {V} walkers x {steps} steps "
+            f"in {dt:.2f} s, {r.live_steps} live walker-steps, "
+            f"{r.live_steps / dt:.4g} walker-steps/s; "
             f"frac_rjs={r.frac_rjs:.4f} frac_precomp={r.frac_precomp:.4f} "
             f"frac_stale={r.frac_stale:.4f} fallbacks={r.rjs_fallbacks}; "
             f"peak device memory "
@@ -511,20 +650,32 @@ def fused_main_path(fused_eng, staged_eng, steps: int) -> int:
     a, b = res["fused"], res["staged"]
     name = f"fused_epoch_{kind}"
     if counts["fused"].get(name, 0) <= 0:
-        fail(f"deepwalk/{method} fused never launched {name}")
+        fail(f"{pname}/{method} fused never launched {name}")
     for k in STAGED_NEEDS[method]:
         if counts["staged"].get(k, 0) <= 0:
-            fail(f"deepwalk/{method} staged never launched {k}")
+            fail(f"{pname}/{method} staged never launched {k}")
     same = (a.paths == b.paths).all(axis=1)
     tele = ("frac_rjs", "frac_precomp", "frac_stale", "rjs_fallbacks",
             "live_steps")
-    log(f"main [deepwalk/{method}]: fused paths equal staged paths on "
+    log(f"main [{pname}/{method}]: fused paths equal staged paths on "
         f"{same.mean():.6f} of queries; telemetry "
         f"{[getattr(a, f) for f in tele]} / {[getattr(b, f) for f in tele]}")
     if not same.all() or any(getattr(a, f) != getattr(b, f) for f in tele):
-        fail(f"deepwalk/{method}: the fused run differs from the staged run")
+        fail(f"{pname}/{method}: the fused run differs from the staged run")
+    if fused_eng.workload.has_hooks:
+        ends = [mid_walk_state(e, steps, steps)
+                for e in (fused_eng, staged_eng)]
+        for f in ("cur", "prev", "step", "alive"):
+            if not torch.equal(getattr(ends[0], f), getattr(ends[1], f)):
+                fail(f"{pname}/{method}: fused end state {f} differs")
+        for x, y in zip(ends[0].wstate, ends[1].wstate):
+            if not torch.equal(x, y):
+                fail(f"{pname}/{method}: fused end program state differs")
+        log(f"main [{pname}/{method}]: fused end state (program state "
+            f"included) equals staged; "
+            f"{int((~ends[0].alive).sum())} walkers stopped early")
     check_paths(fused_eng.graph, a.paths)
-    log(f"main [deepwalk/{method}]: every emitted step is an edge, stopped "
+    log(f"main [{pname}/{method}]: every emitted step is an edge, stopped "
         f"lanes emit -1")
     return counts["fused"][name], counts["staged"]
 
@@ -545,16 +696,21 @@ def mid_walk_state(eng, steps_before: int, num_steps: int = WALK_STEPS):
     return sched.state
 
 
-def time_kernels(engines, reps: int) -> dict:
-    """Phase 5: each kernel at the shapes one main-path step gives it,
-    held against its plain version on the same lanes: K2 and K3 bitwise,
-    K1 bitwise or differing only at near-ties.  Rows are keyed by
-    (kernel, program)."""
+def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
+    """Phase 5: each kernel at the shapes one main-path step gives it
+    (the state after ``MID_STEP`` steps), per program of ``engines``
+    (registry name -> adaptive engine) and kernel its main path launched
+    (``launched``: registry name -> kernel names), held against its plain
+    version on the same lanes: K2 and K3 bitwise, K1 bitwise or differing
+    only at near-ties.  A kernel with no lane at that step is taken at the
+    next step that gives it lanes; one with none fails.  Rows are keyed
+    by (kernel, program)."""
     import torch
     from repro_torch.core import erjs as erjs_mod
     from repro_torch.core import ervs as ervs_mod
     from repro_torch.core.ctxutil import degrees_of
     from repro_torch.core.precomp import its_offsets
+    from repro_torch.core.types import wstate_rows
     from repro_torch.kernels.erjs import erjs_select
     from repro_torch.kernels.ervs import ervs_select
     from repro_torch.kernels.its import its_search
@@ -564,17 +720,30 @@ def time_kernels(engines, reps: int) -> dict:
     def lanes_of(state, mask):
         idx = mask.nonzero().squeeze(1)
         return (state.cur[idx].contiguous(), state.prev[idx].contiguous(),
-                state.step[idx].contiguous(), idx)
+                state.step[idx].contiguous(), idx,
+                wstate_rows(state.wstate, idx))
 
-    def scan_bytes(g, cur, prev, node2vec: bool):
-        deg = degrees_of(g, cur).to(torch.float64)
-        per_edge = 8.0 + (4.0 * probes(degrees_of(g, prev)) if node2vec
-                          else 0.0)
-        return float((56.0 + deg * per_edge).sum()), float(deg.sum())
+    def edge_bytes(g, prev, pname):
+        """Bytes one scanned or proposed edge reads: neighbour and h, the
+        label for MetaPath, the previous row's binary search for the
+        second-order rules."""
+        b = 8.0 + (4.0 if pname.startswith("metapath") else 0.0)
+        if pname in SECOND_ORDER:
+            return b + 4.0 * probes(degrees_of(g, prev))
+        return b
 
-    for eng in engines:
+    def lane_bytes(ws, pname):
+        """Bytes a lane reads beside its cur, prev, step and key: the
+        visited-avoiding ring, once (the other rules read no state)."""
+        if pname != "visited_avoiding":
+            return 0.0
+        return float(ws[0][0].numel() * ws[0].element_size())
+
+    def time_at(pname, eng, step_at: int, names) -> None:
+        """Time the kernels in ``names`` on the lanes of ``pname``'s
+        main-path state after ``step_at`` steps (those with lanes)."""
         g, cfg = eng.graph, eng.config
-        state = mid_walk_state(eng, 8)
+        state = mid_walk_state(eng, step_at)
         ctx = eng.sampler_ctx
         keys_all = state.stream_keys()
         deg = degrees_of(g, state.cur)
@@ -582,77 +751,75 @@ def time_kernels(engines, reps: int) -> dict:
         part = eng.sampler.partition(ctx, state, live)
         params = ctx.params
         prog = eng.workload
-        pname = prog.name.split("[")[0]
-        is_n2v = pname == "node2vec"
         fb = torch.zeros_like(live)
         if bool(part.want_rjs.any()):
-            cur, prev, step, idx = lanes_of(state, part.want_rjs)
+            cur, prev, step, idx, ws = lanes_of(state, part.want_rjs)
             keys, bnd = keys_all[idx].contiguous(), \
                 part.est.bound_max[idx].contiguous()
             run = lambda: erjs_select(g, prog, params, cur, prev, step, keys,
                                       bnd, trials=cfg.rjs_trials,
-                                      rounds=cfg.rjs_max_rounds)
+                                      rounds=cfg.rjs_max_rounds, wstate=ws)
             got = run()
+            fb[idx] = got[1]  # the reservoir lanes include the fallbacks
+        if bool(part.want_rjs.any()) and "erjs_select" in names:
             ms = cuda_ms(run, reps)
-            want = erjs_mod.erjs_step(g, prog, params, cur, prev, step, keys,
-                                      bnd, cfg.rjs_trials, cfg.rjs_max_rounds)
-            plain_ms = cuda_ms(lambda: erjs_mod.erjs_step(
+            want, plain_ms = cuda_once(lambda: erjs_mod.erjs_step(
                 g, prog, params, cur, prev, step, keys, bnd, cfg.rjs_trials,
-                cfg.rjs_max_rounds), 1)
+                cfg.rjs_max_rounds, wstate=ws))
             for x, y, what in zip(got, want, ("next", "fallback", "trials")):
                 if not torch.equal(x, y):
                     fail(f"erjs_select [{pname}] at main-path shapes: "
                          f"{what} differs from erjs_step on "
                          f"{int((x != y).sum())} of {idx.numel()} lanes")
-            fb[idx] = got[1]
             trials = got[2].to(torch.float64)
-            nbytes = float((65.0 + trials * (8.0 + (4.0 * probes(
-                degrees_of(g, prev)) if is_n2v else 0.0))).sum())
+            nbytes = float((73.0 + lane_bytes(ws, pname)
+                            + trials * edge_bytes(g, prev, pname)).sum())
             ops = float(trials.sum()) * (4 * THREEFRY_OPS + 30)
             b_ms, b_by = bound(nbytes, ops)
             rows["erjs_select", pname] = dict(
-                lanes=int(idx.numel()), ms=ms, plain_ms=plain_ms,
-                max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by)
+                lanes=int(idx.numel()), step=step_at, ms=ms,
+                plain_ms=plain_ms, max_abs_err=0, mismatches=0,
+                bound_ms=b_ms, bound_by=b_by)
         rest = live & ~part.want_pre
         res_active = rest & (~part.want_rjs | fb)
         lo, hi = eng.sampler.reservoir_split(ctx, part, res_active)
         for jump, mask in ((False, lo), (True, hi)):
             name = "ervs_jump_select" if jump else "ervs_select"
-            if not bool(mask.any()):
+            if name not in names or not bool(mask.any()):
                 continue
-            cur, prev, step, idx = lanes_of(state, mask)
+            cur, prev, step, idx, ws = lanes_of(state, mask)
             keys = keys_all[idx].contiguous()
-            plain = ervs_mod.ervs_jump_step if jump else ervs_mod.ervs_step
+            plain_fn = ervs_mod.ervs_jump_step if jump else ervs_mod.ervs_step
             run = lambda: ervs_select(g, prog, params, cur, prev, step, keys,
-                                      tile=cfg.tile, jump=jump)
+                                      tile=cfg.tile, jump=jump, wstate=ws)
             got = run()
             ms = cuda_ms(run, reps)
-            want = plain(g, prog, params, cur, prev, step, keys,
-                         tile=cfg.tile)
-            plain_ms = cuda_ms(lambda: plain(g, prog, params, cur, prev, step,
-                                             keys, tile=cfg.tile), 1)
+            want, plain_ms = cuda_once(lambda: plain_fn(
+                g, prog, params, cur, prev, step, keys, tile=cfg.tile,
+                wstate=ws))
             n_bad, unexplained = k1_mismatches(g, prog, params, cur, prev,
                                                keys, got, want, cfg.tile,
-                                               jump)
+                                               jump, step, ws)
             if unexplained:
                 fail(f"{name} [{pname}] at main-path shapes: {unexplained} "
                      f"differences from the plain version are not near-ties")
-            nbytes, edges = scan_bytes(g, cur, prev, is_n2v)
+            d = degrees_of(g, cur).to(torch.float64)
+            nbytes = float((64.0 + lane_bytes(ws, pname)
+                            + d * edge_bytes(g, prev, pname)).sum())
             per_edge = (4 * THREEFRY_OPS + 80) if jump else THREEFRY_OPS + 40
-            b_ms, b_by = bound(nbytes, edges * per_edge)
+            b_ms, b_by = bound(nbytes, float(d.sum()) * per_edge)
             rows[name, pname] = dict(
-                lanes=int(idx.numel()), ms=ms, plain_ms=plain_ms,
-                max_abs_err=int((got - want).abs().max()), mismatches=n_bad,
-                bound_ms=b_ms, bound_by=b_by)
-        if bool(part.want_pre.any()):
-            cur, _, _, idx = lanes_of(state, part.want_pre)
+                lanes=int(idx.numel()), step=step_at, ms=ms,
+                plain_ms=plain_ms, max_abs_err=int((got - want).abs().max()),
+                mismatches=n_bad, bound_ms=b_ms, bound_by=b_by)
+        if "its_search" in names and bool(part.want_pre.any()):
+            cur, _, _, idx, _ = lanes_of(state, part.want_pre)
             keys = keys_all[idx].contiguous()
             run = lambda: its_search(g, eng.precomp, cur, keys)
             got = run()
             ms = cuda_ms(run, reps)
-            want = its_offsets(g, eng.precomp, cur, keys)
-            plain_ms = cuda_ms(lambda: its_offsets(g, eng.precomp, cur, keys),
-                               1)
+            want, plain_ms = cuda_once(lambda: its_offsets(
+                g, eng.precomp, cur, keys))
             if not torch.equal(got, want):
                 fail(f"its_search [{pname}] at main-path shapes: differs "
                      f"from its_offsets on {int((got != want).sum())} of "
@@ -662,13 +829,29 @@ def time_kernels(engines, reps: int) -> dict:
             ops = float((THREEFRY_OPS + 10 + 3 * pr).sum())
             b_ms, b_by = bound(nbytes, ops)
             rows["its_search", pname] = dict(
-                lanes=int(idx.numel()), ms=ms, plain_ms=plain_ms,
-                max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by)
+                lanes=int(idx.numel()), step=step_at, ms=ms,
+                plain_ms=plain_ms, max_abs_err=0, mismatches=0,
+                bound_ms=b_ms, bound_by=b_by)
+        del state
+
+    for pname, eng in engines.items():
+        step_at = MID_STEP[pname]
+        missing = set(launched[pname])
+        while missing:
+            if step_at >= WALK_STEPS:
+                fail(f"{sorted(missing)} [{pname}]: launched on the main "
+                     f"path, but no step gives them lanes to time")
+            time_at(pname, eng, step_at, missing)
+            missing -= {name for name, p in rows if p == pname}
+            if missing:
+                log(f"time {sorted(missing)} [{pname}]: no lanes at step "
+                    f"{step_at}, trying step {step_at + 1}")
+            step_at += 1
     for (name, pname), r in rows.items():
-        log(f"time {name} [{pname}]: {r['lanes']} lanes, kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
-            f"differences")
+        log(f"time {name} [{pname}]: {r['lanes']} lanes at step "
+            f"{r['step']}, kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {r['mismatches']} differences")
     return rows
 
 
@@ -676,7 +859,9 @@ def k4_work(eng, state0, emitted, flags, args: dict):
     """(bytes, operations) a K4 launch from ``state0`` must move and do on
     this run's data: each input read once and each output written once,
     plus per live step the degree, the step key and the regime's reads
-    (scanned edges, eRJS trials, CDF probes, alias columns)."""
+    (scanned edges, eRJS trials, CDF probes, alias columns); a hooked
+    program's state comes in and goes out once (4 B per lane each way)
+    and its hooks cost a few operations per live step."""
     import torch
     from repro_torch.core.ctxutil import degrees_of
     from repro_torch.core.types import StepStats as S
@@ -685,7 +870,8 @@ def k4_work(eng, state0, emitted, flags, args: dict):
 
     g, kind = eng.graph, args["kind"]
     W, T = emitted.shape
-    nbytes = W * (41.0 + 25.0 + 8.0 * T)
+    hooked = eng.workload.has_hooks
+    nbytes = W * (41.0 + 25.0 + 8.0 * T + (8.0 if hooked else 0.0))
     ops = 0.0
     cur, prev, step = state0.cur, state0.prev, state0.step
     for t in range(T):
@@ -695,7 +881,7 @@ def k4_work(eng, state0, emitted, flags, args: dict):
         deg = degrees_of(g, cur).to(torch.float64)
         n_live = float(live.sum())
         nbytes += 8.0 * n_live
-        ops += n_live * (THREEFRY_OPS + 20)
+        ops += n_live * (THREEFRY_OPS + 20 + (4 if hooked else 0))
         scan = live if kind == "reservoir" else bit(S.FALLBACK) | bit(
             S.STALE)
         edges = float(deg[scan].sum())
@@ -730,11 +916,12 @@ def k4_work(eng, state0, emitted, flags, args: dict):
     return nbytes, ops
 
 
-def time_fused(fused: dict) -> dict:
-    """Phase 5b: one K4 launch of ``K4_EPOCH`` steps per regime from the
-    state after 8 steps, and K5 at the step-8 lanes, each held against
-    its plain version on the same state as in phase 3.  The reservoir
-    regime is held against its plain version over
+def time_fused(fused: dict, pname: str) -> dict:
+    """Phase 5b: one K4 launch of ``K4_EPOCH`` steps per regime of program
+    ``pname`` from the state after ``MID_STEP`` steps, and K5 at that
+    state's live lanes, each held against its plain version on the same
+    state as in phase 3.  The reservoir regime, whose plain row scans take
+    minutes, is held against its plain version over
     ``K4_RESERVOIR_PLAIN_EPOCH`` steps of every walker, and its row reports
     that comparison (kernel, plain and bound alike); its ``K4_EPOCH``-step
     launch is timed beside it (``epoch16_ms``)."""
@@ -744,10 +931,12 @@ def time_fused(fused: dict) -> dict:
     from repro_torch.kernels.alias import alias_pick
 
     rows = {}
+    step_at = MID_STEP[pname]
     for kind, eng in fused.items():
         g, cfg = eng.graph, eng.config
         p = eng.sampler_ctx.params
-        state = mid_walk_state(eng, 8)
+        state = mid_walk_state(eng, step_at)
+        n_live = int((state.alive & (state.step < WALK_STEPS)).sum())
         args = dict(kind=kind, tile=cfg.tile, rjs_trials=cfg.rjs_trials,
                     rjs_max_rounds=cfg.rjs_max_rounds, epoch_len=K4_EPOCH,
                     num_steps=WALK_STEPS, bmax=eng._fused_bmax,
@@ -768,11 +957,11 @@ def time_fused(fused: dict) -> dict:
         n_bad, unexplained = k4_mismatches(eng, state, got, want, cfg.tile)
         del got, want
         if unexplained:
-            fail(f"fused_epoch_{kind} at main-path shapes: {unexplained} "
-                 f"walkers differ from the plain version other than at a "
-                 f"reservoir near-tie")
-        rows[f"fused_epoch_{kind}", "deepwalk"] = dict(
-            lanes=int(state.cur.numel()), steps=args["epoch_len"], ms=ms,
+            fail(f"fused_epoch_{kind} [{pname}] at main-path shapes: "
+                 f"{unexplained} walkers differ from the plain version other "
+                 f"than at a reservoir near-tie")
+        rows[f"fused_epoch_{kind}", pname] = dict(
+            lanes=n_live, step=step_at, steps=args["epoch_len"], ms=ms,
             plain_ms=plain_ms, max_abs_err=0, mismatches=n_bad,
             bound_ms=b_ms, bound_by=b_by, **extra)
         if kind == "precomp_alias":
@@ -787,20 +976,22 @@ def time_fused(fused: dict) -> dict:
             want, plain_ms = cuda_once(lambda: alias_offsets(g, tables, cur,
                                                              keys))
             if not torch.equal(got, want):
-                fail(f"alias_pick at main-path shapes: differs from "
-                     f"alias_offsets on {int((got != want).sum())} of "
+                fail(f"alias_pick [{pname}] at main-path shapes: differs "
+                     f"from alias_offsets on {int((got != want).sum())} of "
                      f"{idx.numel()} lanes")
             n = float(idx.numel())
             b_ms, b_by = bound(52.0 * n, n * (THREEFRY_OPS + 10))
-            rows["alias_pick", "deepwalk"] = dict(
-                lanes=int(n), ms=ms, plain_ms=plain_ms, max_abs_err=0,
-                mismatches=0, bound_ms=b_ms, bound_by=b_by)
+            rows["alias_pick", pname] = dict(
+                lanes=int(n), step=step_at, ms=ms, plain_ms=plain_ms,
+                max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by)
+        del state
     for (name, pname), r in rows.items():
         steps = f" x {r['steps']} steps" if "steps" in r else ""
         extra = (f"; its {K4_EPOCH}-step launch {r['epoch16_ms']:.4f} ms, "
                  f"bound {r['epoch16_bound_ms']:.4f} ms"
                  if "epoch16_ms" in r else "")
-        log(f"time {name} [{pname}]: {r['lanes']} lanes{steps}, kernel "
+        log(f"time {name} [{pname}]: {r['lanes']} live lanes at step "
+            f"{r['step']}{steps}, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
             f"walkers differ{extra}")
@@ -822,6 +1013,8 @@ SOURCES = {
                                "src/repro/kernels/megastep_kernel.py:423")
        for kind in FUSED_METHODS},
 }
+# what K4 replaces when it runs a hooked program: the hook branch
+HOOK_BRANCH = "src/repro/kernels/megastep_kernel.py:347"
 
 
 def main() -> int:
@@ -845,7 +1038,7 @@ def main() -> int:
     from repro_torch.core import EngineConfig, WalkEngine
     from repro_torch.graphs import power_law_graph
     from repro_torch.kernels import build
-    from repro_torch.walks import deepwalk, node2vec
+    from repro_torch.walks import make_workload
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -861,12 +1054,19 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} "
         f"sources")
     for f in sorted(build.build_dir().glob("*.log")):
-        regs = [ln.strip() for ln in f.read_text().splitlines()
-                if "registers" in ln]
-        for ln in regs:
-            log(f"ptxas {f.stem.split('-')[0]}: {ln}")
+        # per kernel instance (its mangled name carries the template
+        # arguments, e.g. fused_epoch_kernelILi2ELi1E = KIND 2, HOOK 1):
+        # registers, and the spill line of its function properties
+        entry = ""
+        for ln in f.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                entry = m.group(1)[:48]
+            elif "registers" in ln or "spill" in ln:
+                log(f"ptxas {f.stem.split('-')[0]} {entry}: "
+                    f"{ln.split(':', 1)[-1].strip()}")
 
-    # 2. graph, statistics, tables
+    # 2. graph and engines
     t0 = time.perf_counter()
     graph = power_law_graph(args.nodes, LJ_AVG_DEGREE,
                             weight_dist="uniform", seed=0).to("cuda")
@@ -874,67 +1074,82 @@ def main() -> int:
         f"maxdeg={graph.max_degree()} built in "
         f"{time.perf_counter() - t0:.1f} s")
     cfg = EngineConfig(method="adaptive", jump_threshold=JUMP_THRESHOLD)
-    t0 = time.perf_counter()
-    n2v = WalkEngine(graph, node2vec(), cfg)
-    t1 = time.perf_counter()
-    dw = WalkEngine(graph, deepwalk(), cfg)
-    torch.cuda.synchronize()
-    log(f"engines: node2vec {t1 - t0:.1f} s (node stats), deepwalk "
-        f"{time.perf_counter() - t1:.1f} s (node stats + ITS tables)")
-    fused = {}
-    for kind, method in FUSED_METHODS.items():
+    adaptive = {}
+    for pname in ADAPTIVE_NEEDS:
         t0 = time.perf_counter()
-        fused[kind] = WalkEngine(graph, deepwalk(), EngineConfig(
-            method=method, step_exec="fused"))
+        adaptive[pname] = WalkEngine(graph, make_workload(pname), cfg)
         torch.cuda.synchronize()
-        log(f"engine deepwalk/{method} (fused): "
-            f"{time.perf_counter() - t0:.1f} s, step_exec resolved "
-            f"{fused[kind].step_exec_resolved!r}")
+        log(f"engine {pname}/adaptive: {time.perf_counter() - t0:.1f} s"
+            f"{' (ITS tables)' if adaptive[pname].precomp else ''}")
+    fused = {}
+    for pname in FUSED_PROGRAMS:
+        fused[pname] = {}
+        for kind, method in FUSED_METHODS.items():
+            t0 = time.perf_counter()
+            fused[pname][kind] = WalkEngine(
+                graph, make_workload(pname),
+                EngineConfig(method=method, step_exec="fused"))
+            torch.cuda.synchronize()
+            log(f"engine {pname}/{method} (fused): "
+                f"{time.perf_counter() - t0:.1f} s, step_exec resolved "
+                f"{fused[pname][kind].step_exec_resolved!r}")
 
     # 3. kernels against their plain versions
-    check_kernels(graph, n2v, dw, seed=11)
+    check_kernels(graph, adaptive["node2vec"], adaptive["deepwalk"], seed=11)
     log("check: erjs_select and its_search bitwise equal to their plain "
         "versions")
-    check_fused(graph, fused, seed=12)
+    check_rules(adaptive, seed=13)
+    for pname in FUSED_PROGRAMS:
+        check_fused(graph, fused[pname], pname, seed=12)
     check_small_engine()
 
-    # 4. the main path, one run per program, then each fused method
-    launches = {}
-    for eng, need in ((n2v, ("ervs_select", "ervs_jump_select",
-                             "erjs_select")),
-                      (dw, ("its_search", "ervs_select"))):
-        counts = main_path(eng, args.steps, need)
-        for name in need:
-            launches[name, eng.workload.name.split("[")[0]] = counts[name]
-    for kind, method in FUSED_METHODS.items():
-        t0 = time.perf_counter()
-        staged = WalkEngine(graph, deepwalk(), EngineConfig(
-            method=method, step_exec="staged"))
-        log(f"engine deepwalk/{method} (staged): "
-            f"{time.perf_counter() - t0:.1f} s")
-        n, staged_counts = fused_main_path(fused[kind], staged, args.steps)
-        launches[f"fused_epoch_{kind}", "deepwalk"] = n
-        if kind == "precomp_alias":
-            launches["alias_pick", "deepwalk"] = staged_counts["alias_pick"]
-        del staged
+    # 4. the main path, one adaptive run per program, then each fused
+    # method against staged
+    launches, launched = {}, {}
+    for pname, eng in adaptive.items():
+        counts = main_path(eng, pname, args.steps, ADAPTIVE_NEEDS[pname])
+        launched[pname] = [name for name, n in counts.items() if n]
+        for name in launched[pname]:
+            launches[name, pname] = counts[name]
+    for pname in FUSED_PROGRAMS:
+        steps = (min(args.steps, DEEPWALK_PAIR_STEPS) if pname == "deepwalk"
+                 else args.steps)
+        for kind, method in FUSED_METHODS.items():
+            t0 = time.perf_counter()
+            staged = WalkEngine(graph, make_workload(pname), EngineConfig(
+                method=method, step_exec="staged"))
+            torch.cuda.synchronize()
+            log(f"engine {pname}/{method} (staged): "
+                f"{time.perf_counter() - t0:.1f} s")
+            n, staged_counts = fused_main_path(fused[pname][kind], staged,
+                                               pname, steps)
+            launches[f"fused_epoch_{kind}", pname] = n
+            if kind == "precomp_alias":
+                launches["alias_pick", pname] = staged_counts["alias_pick"]
+            del staged
 
     # 5. kernel times at main-path shapes
-    rows = time_kernels((n2v, dw), args.reps)
-    rows.update(time_fused(fused))
+    rows = time_kernels(adaptive, launched, args.reps)
+    for pname in FUSED_PROGRAMS:
+        rows.update(time_fused(fused[pname], pname))
     kernels = []
     for (name, pname), n in launches.items():
         if (name, pname) not in rows:
-            fail(f"{name} [{pname}]: the main path launched it but step 8 "
-                 f"gave it no lanes to time")
+            fail(f"{name} [{pname}]: launched on the main path but not "
+                 f"timed")
         r = rows[name, pname]
         src, replaces = SOURCES[name]
+        if name.startswith("fused_epoch") and fused[pname]["reservoir"] \
+                .workload.has_hooks:
+            replaces = HOOK_BRANCH
         kernels.append({
             "name": f"{name}/{pname}", "route": "cuda", "source": src,
             "replaces": replaces, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "lanes": r["lanes"], "mismatches": r["mismatches"],
+            "lanes": r["lanes"], "step": r["step"],
+            "mismatches": r["mismatches"],
             **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms")
                if k in r}})
     log(f"total: {time.perf_counter() - t_start:.1f} s")

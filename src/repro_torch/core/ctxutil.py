@@ -76,7 +76,39 @@ def single_edge_ctx(graph: CSRGraph, program: WalkProgram, cur, prev, step,
 
 
 def eval_weights(program: WalkProgram, params, ctx: EdgeCtx,
-                 mask: torch.Tensor) -> torch.Tensor:
-    """w̃ for a ctx block; masked lanes get 0 (never sampled)."""
-    w = program.get_weight(ctx, params)
+                 mask: torch.Tensor, wstate=None) -> torch.Tensor:
+    """w̃ for a ctx block; masked lanes get 0 (never sampled).  ``wstate``
+    is the walkers' program state (leaves lead with ctx's walker dim; the
+    rule broadcasts them over the block's other dims), None if
+    stateless."""
+    w = program.get_weight(ctx, params, wstate)
     return torch.where(mask, torch.clamp_min(w, 0.0), 0.0)
+
+
+def transition_ctx(graph: CSRGraph, cur, prev, step, nxt,
+                   deg_cur) -> EdgeCtx:
+    """[W] EdgeCtx of the transition just taken (the hook contract of
+    ``WalkProgram``): ``nbr`` = the node moved to, ``cur`` / ``prev`` /
+    ``step`` the pre-move view, ``deg_cur`` / ``deg_prev`` their degrees;
+    the per-edge payload is a placeholder (h=1, label=-1, dist=-1)."""
+    minus = torch.full_like(cur, -1)
+    return EdgeCtx(h=torch.ones(cur.shape, device=cur.device), label=minus,
+                   dist=minus, nbr=nxt, deg_cur=deg_cur,
+                   deg_prev=degrees_of(graph, prev), cur=cur, prev=prev,
+                   step=step)
+
+
+def apply_hooks(program: WalkProgram, params, tctx: EdgeCtx, wstate,
+                stepped: torch.Tensor):
+    """(new wstate, stop [W] bool) after a step: ``on_step`` commits on
+    the lanes that moved, and ``should_stop`` sees the new state; only a
+    lane that moved can stop."""
+    stop = torch.zeros_like(stepped)
+    if program.on_step is not None:
+        cand = program.on_step(tctx, params, wstate)
+        wstate = tuple(
+            torch.where(stepped.reshape((-1,) + (1,) * (new.dim() - 1)),
+                        new, old) for new, old in zip(cand, wstate))
+    if program.should_stop is not None:
+        stop = stepped & program.should_stop(tctx, params, wstate)
+    return wstate, stop

@@ -24,9 +24,10 @@ from repro_torch.kernels.prng import fold_in, uniform
 def erjs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
               keys: torch.Tensor, bound: torch.Tensor,
               trials_per_round: int = 8, max_rounds: int = 16,
-              active: Optional[torch.Tensor] = None
+              active: Optional[torch.Tensor] = None, wstate=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (next [W] int64, needs_fallback [W] bool, trials [W] int32).
+    """Returns (next [W] int64, needs_fallback [W] bool, trials [W] int32)
+    for walkers with program state ``wstate``.
 
     next = -2 for inactive walkers, -1 for zero-degree rows and for
     walkers left to the fallback; ``trials`` counts each walker's
@@ -54,7 +55,7 @@ def erjs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
             ctx, valid = single_edge_ctx(graph, program, cur, prev, step,
                                          offset)
             w = torch.where(valid, torch.clamp_min(
-                program.get_weight(ctx, params), 0.0), 0.0)
+                program.get_weight(ctx, params, wstate), 0.0), 0.0)
             pending = feasible & ~done
             accept = pending & (u_acc * bound <= w) & (w > 0)
             trials += pending.to(torch.int32)

@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.ctxutil import degrees_of, eval_weights, tile_ctx
-from repro_torch.core.types import WalkProgram
+from repro_torch.core.types import WalkProgram, wstate_rows
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.kernels.prng import (fold_in, threefry2x32, uniform,
                                       uniform_from_bits)
@@ -49,10 +49,12 @@ def _trip(deg: torch.Tensor, active: torch.Tensor, tile: int):
 
 def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
               keys: torch.Tensor, tile: int = 256,
-              active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One eRVS step for a batch of walkers.  Returns next nodes [W] (int64):
-    -1 when no neighbour has a positive weight, -2 for inactive walkers.
-    Ties keep the first offset holding the maximum key.
+              active: Optional[torch.Tensor] = None,
+              wstate=None) -> torch.Tensor:
+    """One eRVS step for a batch of walkers (program state ``wstate``).
+    Returns next nodes [W] (int64): -1 when no neighbour has a positive
+    weight, -2 for inactive walkers.  Ties keep the first offset holding
+    the maximum key.
 
     Each pass takes the walkers whose rows reach its first tile and as
     many whole tiles as keep a block under ``_BLOCK_ELEMS`` entries, so
@@ -79,7 +81,8 @@ def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
         for lanes in reach.split(max(1, _BLOCK_ELEMS // (k * per_tile))):
             ctx, mask = tile_ctx(graph, program, cur[lanes], prev[lanes],
                                  step[lanes], t * tile, width)
-            w = eval_weights(program, params, ctx, mask)
+            w = eval_weights(program, params, ctx, mask,
+                             wstate_rows(wstate, lanes))
             u = uniform(fold_in(keys[lanes, None, :], tiles[None, :]),
                         per_tile)
             u = u.reshape(lanes.numel(), k * per_tile)[:, :width]
@@ -96,14 +99,15 @@ def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
 
 def ervs_jump_step(graph: CSRGraph, program: WalkProgram, params, cur, prev,
                    step, keys: torch.Tensor, tile: int = 256,
-                   active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   active: Optional[torch.Tensor] = None,
+                   wstate=None) -> torch.Tensor:
     """A-ExpJ (jump) variant; returns next nodes [W] as :func:`ervs_step`
     does.  The lane with the largest final key wins (first lane on ties)."""
     W = cur.shape[0]
     if active is None:
         active = torch.ones(W, dtype=torch.bool, device=cur.device)
     lk_max, nbr_best = jump_lanes(graph, program, params, cur, prev, step,
-                                  keys, tile, active)
+                                  keys, tile, active, wstate)
     if lk_max.shape[1] == 0:
         best = torch.full((W,), -1, dtype=torch.int64, device=cur.device)
     else:
@@ -114,16 +118,20 @@ def ervs_jump_step(graph: CSRGraph, program: WalkProgram, params, cur, prev,
 
 
 def jump_lanes(graph: CSRGraph, program: WalkProgram, params, cur, prev,
-               step, keys: torch.Tensor, tile: int, active: torch.Tensor):
+               step, keys: torch.Tensor, tile: int, active: torch.Tensor,
+               wstate=None):
     """Final (key, neighbour) of each A-ExpJ lane: ([W, lanes] float32,
     [W, lanes] int64) with lanes = min(tile, widest active row).
 
     Tile t draws u0 from ``fold_in(key, 2t)`` and u1 from ``fold_in(key,
     2t+1)``; every float operation is a separate IEEE operation in the
-    reference's order (the CUDA kernel does the same with ``__f*_rn``)."""
+    reference's order (the CUDA kernel does the same with ``__f*_rn``).
+    Tile t is computed only for the walkers whose rows reach it: on the
+    others every edge is masked (w̃ = 0), which changes no lane."""
     W = cur.shape[0]
     dev = cur.device
-    needed, top = _trip(degrees_of(graph, cur), active, tile)
+    deg = degrees_of(graph, cur)
+    needed, top = _trip(deg, active, tile)
     lanes = min(tile, top)
     lk_max = torch.full((W, lanes), NEG_INF, device=dev)
     nbr_best = torch.full((W, lanes), -1, dtype=torch.int64, device=dev)
@@ -131,14 +139,16 @@ def jump_lanes(graph: CSRGraph, program: WalkProgram, params, cur, prev,
     cumw = torch.zeros((W, lanes), device=dev)
     one = torch.tensor(1.0, device=dev)
     for t in range(needed):
+        rows = (active & (deg > t * tile)).nonzero().squeeze(1)
         width = min(tile, top - t * tile)
-        ctx, mask = tile_ctx(graph, program, cur, prev, step, t * tile, width)
-        w = eval_weights(program, params, ctx, mask)
-        w = torch.where(active[:, None], w, 0.0)
-        lk, nb = lk_max[:, :width], nbr_best[:, :width]
-        th, cw = thresh[:, :width], cumw[:, :width]
+        ctx, mask = tile_ctx(graph, program, cur[rows], prev[rows],
+                             step[rows], t * tile, width)
+        w = eval_weights(program, params, ctx, mask,
+                         wstate_rows(wstate, rows))
+        lk, nb = lk_max[rows, :width], nbr_best[rows, :width]
+        th, cw = thresh[rows, :width], cumw[rows, :width]
         is_first = lk == NEG_INF
-        u0 = _tile_uniforms(keys, 2 * t, width)
+        u0 = _tile_uniforms(keys[rows], 2 * t, width)
         init_lk = _log_keys(u0, w)
         crossed = ((cw + w) >= th) & (w > 0) & mask
         t_w = torch.exp(torch.clamp(w * lk, -80.0, 0.0))
@@ -146,20 +156,20 @@ def jump_lanes(graph: CSRGraph, program: WalkProgram, params, cur, prev,
         cross_lk = _log_keys(torch.clamp(u2, 1e-38, 1.0), w)
         new_key = torch.where(is_first, init_lk, cross_lk)
         take = (is_first & (w > 0) & mask) | crossed
-        u1 = _tile_uniforms(keys, 2 * t + 1, width)
+        u1 = _tile_uniforms(keys[rows], 2 * t + 1, width)
         lk_new = torch.where(take, new_key, lk)
         denom = torch.where(lk_new < 0, lk_new, -1e-30)
-        thresh[:, :width] = torch.where(take, torch.log(u1) / denom, th)
-        cumw[:, :width] = torch.where(take, 0.0,
-                                      cw + torch.where(mask, w, 0.0))
-        nbr_best[:, :width] = torch.where(take, ctx.nbr, nb)
-        lk_max[:, :width] = lk_new
+        thresh[rows, :width] = torch.where(take, torch.log(u1) / denom, th)
+        cumw[rows, :width] = torch.where(take, 0.0,
+                                         cw + torch.where(mask, w, 0.0))
+        nbr_best[rows, :width] = torch.where(take, ctx.nbr, nb)
+        lk_max[rows, :width] = lk_new
     return lk_max, nbr_best
 
 
 def offset_keys_f64(graph: CSRGraph, program: WalkProgram, params, cur, prev,
                     step, keys: torch.Tensor, offsets: torch.Tensor,
-                    tile: int = 256) -> torch.Tensor:
+                    tile: int = 256, wstate=None) -> torch.Tensor:
     """float64 eRVS keys ln(u)/w̃ of one row offset per walker, from the
     same float32 uniforms and weights — what the near-tie contract checks a
     divergent choice against (float32 log keys are not bitwise portable
@@ -171,8 +181,8 @@ def offset_keys_f64(graph: CSRGraph, program: WalkProgram, params, cur, prev,
     r0, r1 = threefry2x32(tk[:, 0], tk[:, 1], 0, lane)
     u = uniform_from_bits(r0 ^ r1).to(torch.float64)
     ctx, valid = single_edge_ctx(graph, program, cur, prev, step, offsets)
-    w = torch.where(valid, torch.clamp_min(program.get_weight(ctx, params),
-                                           0.0), 0.0).to(torch.float64)
+    w = torch.where(valid, torch.clamp_min(
+        program.get_weight(ctx, params, wstate), 0.0), 0.0).to(torch.float64)
     return torch.where(w > 0, torch.log(u) / w, float("-inf"))
 
 

@@ -8,7 +8,10 @@ epoch may run (:func:`fuse_report`).  The port's ``torch.fx`` interpreter
 waits for a later slice: here each program *declares* its bound, its sum
 and the fields its weight reads (``WalkProgram.bound`` / ``weight_sum`` /
 ``reads``), and the tests hold the declarations against the reference's
-``bound_fn`` / ``sum_fn`` (bitwise) and ``fuse_report``.
+``bound_fn`` / ``sum_fn`` (bitwise) and ``fuse_report``.  The declared
+bounds are written with :class:`Interval` and its operations, which
+repeat the reference interpreter's rules (corner products, the
+select-by-uncertain-predicate hull) in the same float32 order.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.types import NODE_FIELDS, WalkProgram
+from repro_torch.core.types import (NODE_FIELDS, EdgeCtx, WalkProgram,
+                                    WState)
 
 PER_KERNEL = "PER_KERNEL"
 PER_STEP = "PER_STEP"
@@ -31,7 +35,9 @@ STATE_FIELDS = frozenset({"dist", "prev", "deg_prev", "step", "wstate"})
 @dataclasses.dataclass(frozen=True)
 class BoundInputs:
     """Per-walker runtime values the estimators read ([W] tensors): the
-    current node's h statistics and the walker's own state."""
+    current node's h statistics and the walker's own state, with the
+    program's per-walker ``wstate`` leaves ([W]-leading; None when
+    stateless), concrete like ``cur`` / ``prev`` / ``step``."""
 
     h_min: torch.Tensor
     h_max: torch.Tensor
@@ -41,6 +47,53 @@ class BoundInputs:
     cur: torch.Tensor
     prev: torch.Tensor
     step: torch.Tensor
+    wstate: WState = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Interval:
+    """[lo, hi] of a value over a walker's row, one entry per walker;
+    ``exact`` when lo is hi by construction (the reference's ``IVal``)."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+    exact: bool = False
+
+    @staticmethod
+    def point(x: torch.Tensor) -> "Interval":
+        return Interval(x, x, True)
+
+
+def iv_mul(a: Interval, b: Interval) -> Interval:
+    """The reference's ``_mul``: exact product, else the corner hull."""
+    if a.exact and b.exact:
+        return Interval.point(a.lo * b.lo)
+    c = (a.lo * b.lo, a.lo * b.hi, a.hi * b.lo, a.hi * b.hi)
+    return Interval(torch.minimum(torch.minimum(c[0], c[1]),
+                                  torch.minimum(c[2], c[3])),
+                    torch.maximum(torch.maximum(c[0], c[1]),
+                                  torch.maximum(c[2], c[3])))
+
+
+def iv_select(certainly: torch.Tensor, possibly: torch.Tensor,
+              if_false: Interval, if_true: Interval) -> Interval:
+    """The reference's ``_select_n`` of two cases under an uncertain
+    predicate (``certainly`` / ``possibly`` true): a known branch where
+    the predicate is settled, else the hull of both."""
+    lo = torch.minimum(if_false.lo, if_true.lo)
+    hi = torch.maximum(if_false.hi, if_true.hi)
+    return Interval(
+        torch.where(certainly, if_true.lo,
+                    torch.where(~possibly, if_false.lo, lo)),
+        torch.where(certainly, if_true.hi,
+                    torch.where(~possibly, if_false.hi, hi)))
+
+
+def h_interval(bi: BoundInputs, weighted: bool) -> Interval:
+    """h over the row: [h_min, h_max] when weighted, else the point 1."""
+    if weighted:
+        return Interval(bi.h_min, bi.h_max)
+    return Interval.point(torch.ones((), device=bi.h_max.device))
 
 
 @dataclasses.dataclass
@@ -68,7 +121,8 @@ def analyze(program: WalkProgram) -> CompiledWorkload:
             [f"{program.name}: no declared bound/sum — eRVS-only mode"],
             None, None)
     params = program.params()
-    runtime = set(NODE_FIELDS) | ({"h"} if program.weighted else set())
+    runtime = (set(NODE_FIELDS) | {"wstate"}
+               | ({"h"} if program.weighted else set()))
     flag = PER_STEP if program.reads & runtime else PER_KERNEL
     return CompiledWorkload(
         program, flag, [],
@@ -98,8 +152,11 @@ class FuseReport:
     """Whether a walk program can run in the fused epoch (K4).
 
     ``weight_fusable``   the weight reads neither ``dist`` nor ``label``;
-    ``hooks_fusable``    its ``on_step`` / ``should_stop`` hooks can run
-                         in the kernel (the port's programs have none);
+    ``hooks_fusable``    it has no hooks, or its ``on_step`` keeps the
+                         state's leaf shapes and dtypes and its
+                         ``should_stop`` gives one flag per walker (whether
+                         K4 has the hooks' device form is the fused plan's
+                         question, ``megastep.runs_hooks``);
     ``bound_node_local`` its bound depends on node-local inputs only, so
                          the rejection regime can read a baked per-node
                          table.
@@ -135,6 +192,35 @@ def fuse_report(program: WalkProgram) -> FuseReport:
     if state:
         reasons.append(f"bound depends on non-node-local inputs {state} — "
                        f"no baked per-node bound; rejection stays staged")
+    hooks_fusable = True
+    if program.has_hooks:
+        try:
+            _check_hooks(program)
+        except Exception as e:  # noqa: BLE001 — a miss keeps staged
+            hooks_fusable = False
+            reasons.append(f"hooks not stageable: {e!r}")
     return FuseReport(weight_fusable=not bad and not flagged,
-                      hooks_fusable=True, bound_node_local=not state,
-                      reasons=tuple(reasons))
+                      hooks_fusable=hooks_fusable,
+                      bound_node_local=not state, reasons=tuple(reasons))
+
+
+def _check_hooks(program: WalkProgram) -> None:
+    """Raise unless ``on_step`` maps the state of one walker onto leaves of
+    the same shapes and dtypes and ``should_stop`` gives one flag for it
+    (the reference's shape checks, on a batch of one)."""
+    ws = program.init_wstate_batch(torch.zeros(1, dtype=torch.int64))
+    one = lambda x, dtype=torch.int64: torch.full((1,), x, dtype=dtype)
+    tctx = EdgeCtx(h=one(1.0, torch.float32), label=one(-1), dist=one(-1),
+                   nbr=one(0), deg_cur=one(1), deg_prev=one(0), cur=one(0),
+                   prev=one(-1), step=one(0))
+    if program.on_step is not None:
+        out = program.on_step(tctx, program.params(), ws)
+        want = [(tuple(x.shape), x.dtype) for x in ws or ()]
+        got = [(tuple(x.shape), x.dtype) for x in out or ()]
+        if got != want:
+            raise TypeError(f"on_step leaves {got} != {want}")
+    if program.should_stop is not None:
+        stop = program.should_stop(tctx, program.params(), ws)
+        if tuple(stop.shape) != (1,):
+            raise TypeError(f"should_stop gives shape {tuple(stop.shape)} "
+                            f"for one walker, want (1,)")

@@ -15,8 +15,11 @@ paths and telemetry bit for bit: "staged", a Python loop of steps whose
 regimes are the CUDA kernels K1–K3 and K5 on the card (the reference's
 jitted ``lax.scan``), or "fused", the whole epoch in one launch of K4
 (``kernels/megastep.py``, the reference's mega-step) when the (sampler ×
-program) cell has a fused regime.  ``kill``, ``walk_batch``, multi-device
-runs and graph updates wait for later slices.
+program) cell has a fused regime.  A program's per-walker state rides in
+``WalkerState.wstate``: each refill installs the query's
+``init_walker_state``, each step commits ``on_step`` on the lanes that
+moved and folds ``should_stop`` into ``alive``.  ``kill``, ``walk_batch``,
+multi-device runs and graph updates wait for later slices.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import torch
 from repro_torch.core import flexi_compiler as fc
 from repro_torch.core import precomp as precomp_mod
 from repro_torch.core.cost_model import CostModel
-from repro_torch.core.ctxutil import degrees_of, eval_weights, tile_ctx
+from repro_torch.core.ctxutil import (apply_hooks, degrees_of, eval_weights,
+                                      tile_ctx, transition_ctx)
 from repro_torch.core.samplers import (SamplerContext, available_samplers,
                                        get_sampler)
 from repro_torch.core.types import StepStats, WalkerState, WalkProgram
@@ -144,7 +148,10 @@ class EpochScheduler:
             step=torch.full((self.W,), self.num_steps, dtype=torch.int64,
                             device=dev),
             alive=torch.zeros(self.W, dtype=torch.bool, device=dev),
-            rng=torch.zeros((self.W, 2), dtype=torch.int64, device=dev))
+            rng=torch.zeros((self.W, 2), dtype=torch.int64, device=dev),
+            # placeholder rows until a refill installs the query's own
+            wstate=engine.workload.init_wstate_batch(
+                torch.zeros(self.W, dtype=torch.int64, device=dev)))
 
     @property
     def busy(self) -> bool:
@@ -164,8 +171,8 @@ class EpochScheduler:
 
     def admit(self, query_ids, starts) -> int:
         """Install queries into free slots: ``step=0``, ``prev=-1``,
-        ``alive=True`` and the query's own stream key.  Returns how many
-        were admitted."""
+        ``alive=True``, the query's own stream key and its program state
+        ``init_walker_state(query)``.  Returns how many were admitted."""
         qs = np.asarray(query_ids, np.int64).reshape(-1)
         if qs.size == 0:
             return 0
@@ -187,8 +194,12 @@ class EpochScheduler:
         s.prev[idx] = -1
         s.step[idx] = 0
         s.alive[idx] = True
-        s.rng[idx] = WalkerState.stream_key_data(
-            self.key, torch.from_numpy(qs).to(dev))
+        qids = torch.from_numpy(qs).to(dev)
+        s.rng[idx] = WalkerState.stream_key_data(self.key, qids)
+        if s.wstate is not None:
+            for leaf, new in zip(s.wstate,
+                                 self.engine.workload.init_wstate_batch(qids)):
+                leaf[idx] = new
         self.seconds["admit"] += time.perf_counter() - t0
         return int(qs.size)
 
@@ -298,7 +309,7 @@ class WalkEngine:
             return None
         if cfg.step_exec == "auto" and self.device.type != "cuda":
             return None  # the plain fused loop is a test vehicle, not a win
-        if not self.fuse.fusable:
+        if not self.fuse.fusable or not megastep.runs_hooks(self.workload):
             return None
         kind = self.sampler.fused_kind(usable=self.compiled.usable,
                                        has_precomp=will_precomp)
@@ -316,18 +327,22 @@ class WalkEngine:
 
     def _bake_bmax(self) -> torch.Tensor:
         """Per-node rejection bound table [V] for K4.  Sound because the
-        plan requires ``fuse.bound_node_local``: the bound ignores prev and
-        step, so evaluating it at a placeholder walker gives every walker's
-        bound at v."""
+        plan requires ``fuse.bound_node_local``: the bound ignores prev,
+        step and the program state, so evaluating it at a placeholder
+        walker (state: ``wstate_template()``) gives every walker's bound
+        at v."""
         V = self.graph.num_nodes
         dev = self.device
+        template = self.workload.wstate_template(dev)
+        ws = None if template is None else tuple(
+            leaf.expand((V,) + leaf.shape) for leaf in template)
         bi = fc.BoundInputs(
             h_min=self.stats.h_min, h_max=self.stats.h_max,
             h_mean=self.stats.h_mean, deg_cur=self.graph.degrees().long(),
             deg_prev=torch.zeros(V, dtype=torch.int64, device=dev),
             cur=torch.arange(V, dtype=torch.int64, device=dev),
             prev=torch.full((V,), -1, dtype=torch.int64, device=dev),
-            step=torch.zeros(V, dtype=torch.int64, device=dev))
+            step=torch.zeros(V, dtype=torch.int64, device=dev), wstate=ws)
         return self.compiled.bound_fn(bi)
 
     def _build_fused_epoch(self):
@@ -354,13 +369,20 @@ class WalkEngine:
         sel = self.sampler.select(ctx, state, keys, active=live)
         nxt = torch.where(live, sel.next_nodes, -1)
         stepped = live & (nxt >= 0)
+        wstate, stop = state.wstate, torch.zeros_like(stepped)
+        if self.workload.has_hooks:
+            tctx = transition_ctx(ctx.graph, state.cur, state.prev,
+                                  state.step, nxt, deg)
+            wstate, stop = apply_hooks(self.workload, ctx.params, tctx,
+                                       state.wstate, stepped)
         new_state = WalkerState(
             cur=torch.where(stepped, nxt, state.cur),
             prev=torch.where(stepped, state.cur, state.prev),
             step=state.step + stepped.to(torch.int64),
-            # a lane that wanted to step but could not has dead-ended
-            alive=state.alive & ~(wants & ~stepped),
-            rng=state.rng)
+            # a lane that wanted to step but could not has dead-ended; a
+            # lane whose program said stop is equally finished
+            alive=state.alive & ~(wants & ~stepped) & ~stop,
+            rng=state.rng, wstate=wstate)
         stats = StepStats(live=live.sum(), rjs_served=sel.rjs_served,
                           fallbacks=sel.fallbacks,
                           precomp_served=sel.precomp_served,
@@ -443,14 +465,17 @@ class WalkEngine:
 
 
 def exact_probs(graph: CSRGraph, workload: WalkProgram, params, v: int,
-                prev: int, step: int, pad: int):
+                prev: int, step: int, pad: int, wstate=None):
     """Ground-truth transition distribution (p [pad], nbr [pad]) of a
-    walker at ``v`` whose previous node is ``prev``."""
+    walker at ``v`` whose previous node is ``prev``; ``wstate`` is that
+    ONE walker's program state (leaves without the walker dim)."""
     dev = graph.device
     one = lambda x: torch.tensor([x], dtype=torch.int64, device=dev)
     ctx, mask = tile_ctx(graph, workload, one(v), one(prev), one(step), 0,
                          pad)
-    w = eval_weights(workload, params, ctx, mask)[0].cpu().numpy()
+    ws = None if wstate is None else tuple(
+        torch.as_tensor(leaf, device=dev)[None] for leaf in wstate)
+    w = eval_weights(workload, params, ctx, mask, ws)[0].cpu().numpy()
     total = w.sum()
     p = w / total if total > 0 else w
     return p, ctx.nbr[0].cpu().numpy()

@@ -15,8 +15,9 @@ the reservoir, and the reservoir splits by degree — hubs
 (deg ≥ ``jump_threshold``) take the A-ExpJ jump instance of K1, everyone
 else plain eRVS.  Rejection lanes unresolved after the last round fall
 back to the reservoir (§7.1).  Each regime runs on the compacted list of
-its own lanes; a walker's draw never depends on the others, so this
-equals the reference's masked full-width calls.
+its own lanes, with the lanes' rows of the program state (``wstate``); a
+walker's draw never depends on the others, so this equals the
+reference's masked full-width calls.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch
 from repro_torch.core import flexi_compiler as fc
 from repro_torch.core.ctxutil import degrees_of
 from repro_torch.core.precomp import PrecompTables, offset_nodes
-from repro_torch.core.types import WalkerState
+from repro_torch.core.types import WalkerState, wstate_rows
 from repro_torch.kernels.alias import alias_pick
 from repro_torch.kernels.erjs import erjs_select
 from repro_torch.kernels.ervs import ervs_select
@@ -83,7 +84,8 @@ class SamplerContext:
             h_mean=self.stats.h_mean[vs],
             deg_cur=degrees_of(self.graph, state.cur),
             deg_prev=degrees_of(self.graph, state.prev),
-            cur=state.cur, prev=state.prev, step=state.step)
+            cur=state.cur, prev=state.prev, step=state.step,
+            wstate=state.wstate)
 
     def estimates(self, state: WalkerState) -> Estimates:
         if not self.compiled.usable:
@@ -152,7 +154,8 @@ def _reservoir(ctx, state, keys, mask, *, jump: bool) -> torch.Tensor:
         nxt[idx] = ervs_select(
             ctx.graph, ctx.workload, ctx.params, state.cur[idx],
             state.prev[idx], state.step[idx], keys[idx],
-            tile=ctx.config.tile, jump=jump)
+            tile=ctx.config.tile, jump=jump,
+            wstate=wstate_rows(state.wstate, idx))
     return nxt
 
 
@@ -192,7 +195,8 @@ class ERJSRejection:
             nxt[idx], fb[idx], _ = erjs_select(
                 ctx.graph, ctx.workload, ctx.params, state.cur[idx],
                 state.prev[idx], state.step[idx], keys[idx], bound[idx],
-                trials=ctx.config.rjs_trials, rounds=ctx.config.rjs_max_rounds)
+                trials=ctx.config.rjs_trials, rounds=ctx.config.rjs_max_rounds,
+                wstate=wstate_rows(state.wstate, idx))
         return nxt, fb
 
 

@@ -8,14 +8,18 @@ hand-written kernel cannot trace a Python rule, a program that runs on
 the card also names its device weight rule (``kernel_rule``), and — until
 the port's compiler lands — declares the Flexi-Compiler facts the
 reference derives from its jaxpr: the fields its weight reads, its bound
-and its Eq. 12 sum.  Per-walker program state and the ``on_step`` /
-``should_stop`` hooks wait for a later slice; the two ported programs use
-neither.
+and its Eq. 12 sum.
+
+Per-walker program state (``wstate``) is a tuple of tensors whose dim 0
+is the walker, the torch form of the reference's pytree leaves (or None
+for a stateless program).  The hooks take and return whole batches:
+``init_walker_state(query_ids [n])`` gives n walkers' state, ``on_step``
+and ``should_stop`` see the [W] transition ctx and the [W]-leading state.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, FrozenSet, Optional
+from typing import Any, Callable, FrozenSet, Optional, Tuple
 
 import torch
 
@@ -41,6 +45,18 @@ class EdgeCtx:
 
 NODE_FIELDS = ("deg_cur", "deg_prev", "cur", "prev", "step")
 
+#: per-walker program state: one tensor per leaf, dim 0 the walker
+WState = Optional[Tuple[torch.Tensor, ...]]
+
+
+def wstate_rows(wstate: WState, idx: torch.Tensor) -> WState:
+    """The rows ``idx`` of every leaf (the state of a compacted lane list)."""
+    return None if wstate is None else tuple(leaf[idx] for leaf in wstate)
+
+
+def _stateless(query_ids):
+    return None
+
 
 @dataclasses.dataclass(frozen=True)
 class WalkProgram:
@@ -56,15 +72,39 @@ class WalkProgram:
                     Σ w̃, bitwise the reference's ``sum_fn``.
     ``kernel_rule`` ``kernel_rule(params) -> KernelRule``: the device
                     weight function the CUDA kernels evaluate.
+
+    Per-walker state and hooks (the reference's ``WalkProgram`` contract,
+    batched):
+
+    ``init_walker_state(query_ids)``  state of the walkers serving
+                    ``query_ids`` ([n] int64): a tuple of [n, ...]
+                    tensors, or None (stateless);
+    ``get_weight(ctx, params, wstate)``  w̃ of a block of edges; leaves
+                    lead with the walker dim of ``ctx``, and the rule
+                    broadcasts them over the block's other dims;
+    ``on_step(tctx, params, wstate) -> wstate``  the transition just
+                    taken ([W] ctx: ``nbr`` = node moved to, ``cur`` /
+                    ``prev`` / ``step`` the pre-move view, ``h=1``,
+                    ``label=-1``, ``dist=-1``); the engine commits it on
+                    the lanes that moved;
+    ``should_stop(tctx, params, wstate) -> [W] bool``  with the NEW state;
+                    True folds into ``alive``;
+    ``hook_rule``   ``hook_rule(params) -> HookRule``: the device form of
+                    the hooks, which the fused epoch K4 runs.
     """
 
     name: str
     init: Callable[[], Any]
-    get_weight: Callable[[EdgeCtx, Any], torch.Tensor]
+    get_weight: Callable[..., torch.Tensor]
+    init_walker_state: Callable[[torch.Tensor], WState] = _stateless
+    on_step: Optional[Callable[[EdgeCtx, Any, WState], WState]] = None
+    should_stop: Optional[Callable[[EdgeCtx, Any, WState],
+                                   torch.Tensor]] = None
     reads: FrozenSet[str] = frozenset({"h"})
     bound: Optional[Callable[[Any, Any], torch.Tensor]] = None
     weight_sum: Optional[Callable[[Any, Any], torch.Tensor]] = None
     kernel_rule: Optional[Callable[[Any], Any]] = None
+    hook_rule: Optional[Callable[[Any], Any]] = None
     needs_dist: bool = False
     needs_labels: bool = False
     num_labels: int = 1
@@ -73,6 +113,21 @@ class WalkProgram:
 
     def params(self):
         return self.init()
+
+    @property
+    def has_hooks(self) -> bool:
+        """Whether the engine must run the per-step hook machinery."""
+        return self.on_step is not None or self.should_stop is not None
+
+    def init_wstate_batch(self, query_ids: torch.Tensor) -> WState:
+        """State of the walkers serving ``query_ids`` ([n]-leading leaves)."""
+        return self.init_walker_state(query_ids.to(torch.int64))
+
+    def wstate_template(self, device="cpu") -> WState:
+        """One walker's initial state (leaves without the walker dim)."""
+        ws = self.init_wstate_batch(
+            torch.zeros(1, dtype=torch.int64, device=device))
+        return None if ws is None else tuple(leaf[0] for leaf in ws)
 
 
 @dataclasses.dataclass
@@ -92,12 +147,29 @@ class WalkerState:
     step: torch.Tensor  # [W] int64 steps taken by the current occupant
     alive: torch.Tensor  # [W] bool
     rng: torch.Tensor  # [W, 2] int64 raw per-query key data (uint32 values)
+    #: program-owned state (None: stateless); advanced by ``on_step`` on
+    #: lanes that moved, reset per query on refill
+    wstate: WState = None
 
     @staticmethod
     def stream_key_data(key: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Raw key data of the per-query streams ``fold_in(key, id)``."""
         ids = ids.to(torch.int64)
         return fold_in(key.to(ids.device).expand(ids.shape[0], 2), ids)
+
+    @staticmethod
+    def create(starts: torch.Tensor, key: torch.Tensor,
+               wstate: WState = None) -> "WalkerState":
+        """A fully occupied batch: walker i serves query i (stream
+        ``fold_in(key, i)``; ``wstate``, when given, its program state)."""
+        W, dev = starts.shape[0], starts.device
+        ids = torch.arange(W, dtype=torch.int64, device=dev)
+        return WalkerState(
+            cur=starts.to(torch.int64),
+            prev=torch.full((W,), -1, dtype=torch.int64, device=dev),
+            step=torch.zeros(W, dtype=torch.int64, device=dev),
+            alive=torch.ones(W, dtype=torch.bool, device=dev),
+            rng=WalkerState.stream_key_data(key, ids), wstate=wstate)
 
     def stream_keys(self) -> torch.Tensor:
         """[W, 2] per-step keys: each walker's stream ⊕ its step count."""

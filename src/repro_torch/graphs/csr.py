@@ -1,15 +1,19 @@
 """CSR graph and per-node preprocessing (port of ``repro/graphs/csr.py``).
 
 ``indices`` is sorted within each row, so ``dist(v', u)`` (Node2Vec's "is
-u a neighbour of the previous node" test) is a binary search of the
-previous node's row (:func:`has_edge`) — the same search the CUDA kernels
-run per candidate edge.  Per-node statistics are computed host-side with
+u a neighbour of the previous node" test) is a search of sorted keys: the
+CUDA kernels binary-search the previous node's row per candidate edge,
+and the plain version (:func:`has_edge`) looks ``v'·V + u`` up in the
+ascending table of every edge's ``src·V + dst``, which answers the same
+question in one ``searchsorted``.  Per-node statistics are computed host-side with
 the reference's accumulation order (a sequential float32 sum per row, as
-XLA's ``segment_sum`` does on the CPU), so they match bit for bit.
+XLA's ``segment_sum`` does on the CPU), so they match bit for bit, once
+per graph and label count.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -43,7 +47,28 @@ class CSRGraph:
         return self.indptr.device
 
     def to(self, device) -> "CSRGraph":
-        return CSRGraph(*(t.to(device) for t in dataclasses.astuple(self)))
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev == self.device:
+            return self  # like Tensor.to: keeps what the graph cached
+        return CSRGraph(*(t.to(dev) for t in dataclasses.astuple(self)))
+
+    @functools.cached_property
+    def _stats_by_labels(self) -> dict:
+        """:func:`node_stats` results by label count, filled on first use
+        (the graph's arrays are never written, so they stay true)."""
+        return {}
+
+    @functools.cached_property
+    def edge_keys(self) -> torch.Tensor:
+        """[E] int64 ``src · V + dst`` of every edge, ascending (rows come
+        in order and each is sorted): the table :func:`has_edge` searches,
+        built on first use."""
+        src = torch.repeat_interleave(
+            torch.arange(self.num_nodes, device=self.device),
+            self.degrees().long())
+        return src * self.num_nodes + self.indices.long()
 
     def degrees(self) -> torch.Tensor:
         return self.indptr[1:] - self.indptr[:-1]
@@ -108,24 +133,22 @@ def row_scan(values, indptr, dtype, long_row: int = 256) -> np.ndarray:
     """Inclusive prefix sums within each CSR row, accumulated sequentially
     in ``dtype`` (bit for bit ``np.cumsum`` of every row on its own).
 
-    Rows up to ``long_row`` long advance together, one position at a time
-    (rows sorted by degree, so the rows still running are a prefix); the
-    few longer rows take ``np.cumsum`` each.  That keeps the sequential
-    order a bit-exact reference needs without a Python loop over all rows.
+    Rows up to ``long_row`` long are taken a degree at a time: the rows
+    of degree d gather into an [n, d] array, whose ``np.cumsum`` along
+    axis 1 accumulates each row in order; the few longer rows take
+    ``np.cumsum`` each.  That keeps the sequential order a bit-exact
+    reference needs without a Python loop over all rows.
     """
     vals = np.asarray(values, dtype)
     indptr = np.asarray(indptr, np.int64)
     deg = np.diff(indptr)
     out = np.zeros(vals.shape[0], dtype)
     short = np.nonzero((deg > 0) & (deg <= long_row))[0]
-    order = short[np.argsort(-deg[short], kind="stable")]
-    starts, d = indptr[order], deg[order]
-    acc = np.zeros(order.size, dtype)
-    for j in range(int(d.max(initial=0))):
-        n = int(np.searchsorted(-d, -j, side="left"))  # rows with d > j
-        pos = starts[:n] + j
-        acc[:n] += vals[pos]
-        out[pos] = acc[:n]
+    order = short[np.argsort(deg[short], kind="stable")]
+    for rows in np.split(order, np.flatnonzero(np.diff(deg[order])) + 1):
+        if rows.size:
+            idx = indptr[rows][:, None] + np.arange(deg[rows[0]])
+            out[idx] = np.cumsum(vals[idx], axis=1, dtype=dtype)
     for v in np.nonzero(deg > long_row)[0]:
         s, e = indptr[v], indptr[v + 1]
         out[s:e] = np.cumsum(vals[s:e], dtype=dtype)
@@ -136,7 +159,15 @@ def node_stats(graph: CSRGraph, num_labels: int = 8) -> NodeStats:
     """Per-node min/max/sum/mean of h and per-label edge counts, on the
     graph's device.  Computed host-side: ``h_sum`` is each row's
     sequential float32 sum, the order the reference's ``segment_sum``
-    accumulates in, so every field matches the reference bitwise."""
+    accumulates in, so every field matches the reference bitwise.  The
+    graph keeps them, so engines on one graph compute them once."""
+    memo = graph._stats_by_labels
+    if num_labels not in memo:
+        memo[num_labels] = _node_stats(graph, num_labels)
+    return memo[num_labels]
+
+
+def _node_stats(graph: CSRGraph, num_labels: int) -> NodeStats:
     indptr = graph.indptr.cpu().numpy().astype(np.int64)
     h = graph.h.cpu().numpy()
     labels = graph.labels.cpu().numpy()
@@ -168,26 +199,17 @@ def node_stats(graph: CSRGraph, num_labels: int = 8) -> NodeStats:
 
 
 def has_edge(graph: CSRGraph, v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """True iff edge (v, u) exists: a binary search of the sorted row of
-    ``v`` (any shape, broadcast with ``u``); ``v == -1`` gives False."""
+    """True iff edge (v, u) exists (any shape, ``v`` broadcast with ``u``);
+    ``v == -1`` gives False."""
     v, u = torch.broadcast_tensors(v.long(), u.long())
-    valid = v >= 0
-    vs = v.clamp_min(0)
-    lo = graph.row_starts(vs)
-    end = lo + graph.row_degs(vs)
-    hi = end.clone()
-    last = max(graph.num_edges - 1, 0)
-    while True:
-        open_ = lo < hi
-        if not bool(open_.any()):
-            break
-        mid = (lo + hi) // 2
-        mid_val = graph.indices[mid.clamp(0, last)].long()
-        go_right = (mid_val < u) & open_
-        lo = torch.where(go_right, mid + 1, lo)
-        hi = torch.where(go_right | ~open_, hi, mid)
-    found = (lo < end) & (graph.indices[lo.clamp(0, last)].long() == u)
-    return valid & found
+    V, E = graph.num_nodes, graph.num_edges
+    ok = (v >= 0) & (u >= 0) & (u < V)
+    if E == 0:
+        return torch.zeros_like(ok)
+    keys = graph.edge_keys
+    q = v.clamp_min(0) * V + u.clamp(0, max(V - 1, 0))
+    pos = torch.searchsorted(keys, q).clamp_max(E - 1)
+    return ok & (keys[pos] == q)
 
 
 def dist_code(graph: CSRGraph, v_prev: torch.Tensor, u: torch.Tensor

@@ -7,6 +7,8 @@ statistics, tables and walker state.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -67,14 +69,30 @@ def keys_from_arrays(key_data, device="cpu") -> torch.Tensor:
               device)
 
 
+def wstate_from_arrays(leaves, device="cpu"):
+    """The reference's per-walker program state — its pytree leaves as
+    numpy arrays, in ``jax.tree_util.tree_leaves`` order (one array for a
+    one-leaf state, None when stateless) — as the port's tuple."""
+    if leaves is None:
+        return None
+    if not isinstance(leaves, (list, tuple)):
+        leaves = [leaves]
+    return tuple(torch.from_numpy(np.array(leaf)).to(device)
+                 for leaf in leaves)
+
+
 def program_from_params(name: str, params=None, weighted: bool = True
                         ) -> WalkProgram:
-    """The port's program for a reference workload name (``node2vec`` /
-    ``deepwalk``) and its hyperparameters (an object with ``a``/``b``
-    attributes, a dict, or None for the defaults)."""
-    kw = {}
-    if name == "node2vec" and params is not None:
-        get = params.get if isinstance(params, dict) else (
-            lambda k: getattr(params, k))
-        kw = {"a": float(get("a")), "b": float(get("b"))}
-    return make_workload(name, weighted=weighted, **kw)
+    """The port's program for a reference registry name and its
+    hyperparameters: the reference's params dataclass (``N2VParams``,
+    ``MetaPathParams``, ...), a dict of factory keywords, or None for the
+    defaults.  ``weighted`` is ignored for the ``*_unweighted`` names."""
+    if params is None or params == ():
+        kw = {}
+    elif dataclasses.is_dataclass(params):
+        kw = dataclasses.asdict(params)
+    else:
+        kw = dict(params)
+    if not name.endswith("_unweighted"):
+        kw["weighted"] = weighted
+    return make_workload(name, **kw)

@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+from repro_torch.kernels.rules import RuleStruct
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ervs.cu", "erjs.cu", "its.cu", "alias.cu", "megastep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -103,17 +105,17 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_int64
+_R = ctypes.POINTER(RuleStruct)
 _SIGNATURES = {
     "ervs": ("repro_ervs_select",
-             [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _I, _I, _I, _P, _P]),
+             [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P]),
     "erjs": ("repro_erjs_select",
-             [_P, _P, _P, _I, _I, _F, _F, _P, _P, _P, _P, _I, _I, _I, _P,
-              _P, _P, _P]),
+             [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 4),
     "its": ("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
     "alias": ("repro_alias_pick", [_P, _P, _P, _P, _P, _P, _I, _P, _P]),
     "megastep": ("repro_fused_epoch",
-                 [_P, _P, _P, _I, _I, _F, _F, _I] + [_P] * 11
-                 + [_I, _I, _I, _I, _I, _L] + [_P] * 7),
+                 [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 12
+                 + [_I, _I, _I, _I, _I, _L] + [_P] * 8),
 }
 
 
@@ -159,3 +161,4 @@ def require_graph(graph, device) -> None:
     require(graph.indptr, "graph.indptr", torch.int32, (V + 1,), device)
     require(graph.indices, "graph.indices", torch.int32, (E,), device)
     require(graph.h, "graph.h", torch.float32, (E,), device)
+    require(graph.labels, "graph.labels", torch.int32, (E,), device)

@@ -28,12 +28,13 @@ __device__ __forceinline__ float fold_uniform(uint32_t k0, uint32_t k1,
 }
 
 __device__ __forceinline__ ErjsResult erjs_trials(const Graph& g,
-                                                  const Rule& rule, int64_t v,
-                                                  int64_t p, uint32_t k0,
-                                                  uint32_t k1, float bound,
-                                                  int trials, int rounds) {
-  const int64_t start = g.indptr[v];
-  const int deg = g.indptr[v + 1] - g.indptr[v];
+                                                  const Rule& rule,
+                                                  const WalkerCtx& wc,
+                                                  uint32_t k0, uint32_t k1,
+                                                  float bound, int trials,
+                                                  int rounds) {
+  const int64_t start = g.indptr[wc.cur];
+  const int deg = wc.deg_cur;
   const bool feasible = deg > 0 && bound > 0.0f;
   const float degf = __int2float_rn(deg);
   ErjsResult res{-1, false, 0};
@@ -45,7 +46,7 @@ __device__ __forceinline__ ErjsResult erjs_trials(const Graph& g,
       const float u_acc = fold_uniform(k0, k1, ctr + 1u);
       const int off = min(__float2int_rz(__fmul_rn(u_idx, degf)), deg - 1);
       const int64_t nbr = g.indices[start + off];
-      const float w = edge_weight(g, rule, p, start + off, nbr);
+      const float w = edge_weight(g, rule, wc, start + off, nbr);
       ++res.trials;
       if (__fmul_rn(u_acc, bound) <= w && w > 0.0f) {
         res.chosen = nbr;

@@ -48,14 +48,14 @@ __device__ __forceinline__ float log_key(float u, float w) {
   return w > 0.0f ? __fdiv_rn(logf(u), w) : -CUDART_INF_F;
 }
 
-// Next node of the walker at v (previous node p, per-step key (k0, k1)),
-// or -1 when no neighbour has a positive weight.  `lane` = threadIdx.x & 31.
+// Next node of walker `wc` (per-step key (k0, k1)), or -1 when no
+// neighbour has a positive weight.  `lane` = threadIdx.x & 31.
 template <bool JUMP>
 __device__ int64_t ervs_warp_select(const Graph& g, const Rule& rule,
-                                    int64_t v, int64_t p, uint32_t k0,
+                                    const WalkerCtx& wc, uint32_t k0,
                                     uint32_t k1, int tile, int lane) {
-  const int64_t start = g.indptr[v];
-  const int deg = g.indptr[v + 1] - g.indptr[v];
+  const int64_t start = g.indptr[wc.cur];
+  const int deg = wc.deg_cur;
   Best best{-CUDART_INF_F, INT32_MAX};
   int64_t best_nbr = -1;  // jump: neighbour held by this thread's best lane
 
@@ -71,7 +71,7 @@ __device__ int64_t ervs_warp_select(const Graph& g, const Rule& rule,
       const float u = uniform_from_bits(
           random_bits(t0, t1, static_cast<uint32_t>(j - t * tile)));
       const int64_t nbr = g.indices[start + j];
-      const float lk = log_key(u, edge_weight(g, rule, p, start + j, nbr));
+      const float lk = log_key(u, edge_weight(g, rule, wc, start + j, nbr));
       if (lk > best.key) best = Best{lk, j};  // offsets rise: first max kept
     }
   } else {
@@ -88,7 +88,7 @@ __device__ int64_t ervs_warp_select(const Graph& g, const Rule& rule,
         const float u0 = uniform_from_bits(random_bits(a0, a1, l));
         const float u1 = uniform_from_bits(random_bits(b0, b1, l));
         const int64_t nbr = g.indices[start + j];
-        const float w = edge_weight(g, rule, p, start + j, nbr);
+        const float w = edge_weight(g, rule, wc, start + j, nbr);
         const bool is_first = lk_max == -CUDART_INF_F;
         const float init_lk = log_key(u0, w);
         const bool crossed = (__fadd_rn(cumw, w) >= thresh) && (w > 0.0f);

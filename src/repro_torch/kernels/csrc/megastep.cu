@@ -3,13 +3,21 @@
 //
 // Replaces the TPU mega-step kernel repro/kernels/megastep_kernel.py:423
 // make_streamed_epoch / :517 make_fused_epoch (body _make_kernel :150,
-// pallas_call :494) for programs without on_step/should_stop hooks.  Each
-// walker lane runs the staged step (repro/core/runtime.py, step) epoch_len
-// times without returning to the host: its degree, the per-step key
-// fold_in(rng, step), the regime's draw, the live/stepped/alive update,
-// and a per-(lane, step) int32 flag word (bits LIVE, RJS, FALLBACK,
-// PRECOMP, STALE = 0..4, reduced to StepStats outside) beside the emitted
-// node.  One instance per regime (FUSED_KINDS):
+// pallas_call :494), its hook branch (:347-361) included.  Each walker
+// lane runs the staged step (repro/core/runtime.py, step) epoch_len times
+// without returning to the host: its degree, the per-step key
+// fold_in(rng, step), the regime's draw, the program's hooks, the
+// live/stepped/alive update, and a per-(lane, step) int32 flag word (bits
+// LIVE, RJS, FALLBACK, PRECOMP, STALE = 0..4, reduced to StepStats
+// outside) beside the emitted node.
+//
+// Hooks (one instance per hook rule, HOOK): each lane loads its program
+// state into registers at epoch start (PPR-Nibble: one float32 mass),
+// builds the transition ctx the staged step builds (nbr = the node moved
+// to; cur, prev, step and deg_cur = d(cur) before the move), commits
+// on_step only when the lane stepped, evaluates should_stop on the new
+// state, folds a stop into alive, and writes the state back at epoch end.
+// One instance per (regime, hook rule); the regimes (FUSED_KINDS):
 //   reservoir      ervs_warp_select (ervs.cuh), the code K1 runs;
 //   rejection      erjs_trials (erjs.cuh, K2's code) against the baked
 //                  per-node bound bmax, the reservoir when trials run out;
@@ -55,6 +63,7 @@ struct EpochIn {
   const float* prob;      // [E] alias tables (precomp_alias)
   const int32_t* alias;   // [E]
   const bool* invalid;    // [V] stale rows (precomp kinds)
+  const float* mass;      // [W] PPR-Nibble residual mass (HOOK_PPR_NIBBLE)
 };
 
 struct EpochOut {
@@ -64,12 +73,13 @@ struct EpochOut {
   int64_t* prev;
   int64_t* step;
   bool* alive;
+  float* mass;
 };
 
-template <int KIND>
-__global__ void fused_epoch_kernel(Graph g, Rule rule, EpochIn in,
-                                   EpochOut out, int n, int tile, int trials,
-                                   int rounds, int epoch_len,
+template <int KIND, int HOOK>
+__global__ void fused_epoch_kernel(Graph g, Rule rule, Hooks hooks,
+                                   EpochIn in, EpochOut out, int n, int tile,
+                                   int trials, int rounds, int epoch_len,
                                    int64_t num_steps) {
   const int64_t w = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x) >> 5;
@@ -77,10 +87,12 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, EpochIn in,
   if (w >= n) return;  // whole warps exit together
   int64_t cur = in.cur[w], prev = in.prev[w], step = in.step[w];
   bool alive = in.alive[w];
+  float mass = HOOK == HOOK_PPR_NIBBLE ? in.mass[w] : 0.0f;
   const uint32_t s0 = static_cast<uint32_t>(in.rng[2 * w]);
   const uint32_t s1 = static_cast<uint32_t>(in.rng[2 * w + 1]);
   for (int t = 0; t < epoch_len; ++t) {
-    const int deg = cur >= 0 ? g.indptr[cur + 1] - g.indptr[cur] : 0;
+    const WalkerCtx wc = walker_ctx(g, rule, cur, prev, step, nullptr);
+    const int deg = wc.deg_cur;
     const bool wants = alive && step < num_steps;
     const bool live = wants && deg > 0;
     int64_t nxt = -1;
@@ -90,13 +102,12 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, EpochIn in,
       fold_in(s0, s1, static_cast<uint32_t>(step), k0, k1);
       flag = kLive;
       if (KIND == kReservoir) {
-        nxt = ervs_warp_select<false>(g, rule, cur, prev, k0, k1, tile, lane);
+        nxt = ervs_warp_select<false>(g, rule, wc, k0, k1, tile, lane);
       } else if (KIND == kRejection) {
-        const ErjsResult r = erjs_trials(g, rule, cur, prev, k0, k1,
-                                         in.bmax[cur], trials, rounds);
+        const ErjsResult r = erjs_trials(g, rule, wc, k0, k1, in.bmax[cur],
+                                         trials, rounds);
         if (r.fallback) {
-          nxt = ervs_warp_select<false>(g, rule, cur, prev, k0, k1, tile,
-                                        lane);
+          nxt = ervs_warp_select<false>(g, rule, wc, k0, k1, tile, lane);
           flag |= kFallback;
         } else {
           nxt = r.chosen;
@@ -113,7 +124,7 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, EpochIn in,
           flag |= kPrecomp;
         }
       } else {  // stale row: the dynamic path
-        nxt = ervs_warp_select<false>(g, rule, cur, prev, k0, k1, tile, lane);
+        nxt = ervs_warp_select<false>(g, rule, wc, k0, k1, tile, lane);
         if (nxt >= 0) flag |= kStale;
       }
     }
@@ -122,8 +133,14 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, EpochIn in,
       out.emitted[w * epoch_len + t] = stepped ? static_cast<int32_t>(nxt) : -1;
       out.flags[w * epoch_len + t] = flag;
     }
-    // a lane that wanted to step but could not has dead-ended
-    alive = alive && !(wants && !stepped);
+    bool stop = false;
+    if (HOOK == HOOK_PPR_NIBBLE && stepped) {
+      mass = __fmul_rn(mass, hooks.decay);  // on_step
+      stop = mass < __fmul_rn(hooks.eps, __int2float_rn(deg));  // should_stop
+    }
+    // a lane that wanted to step but could not has dead-ended; a lane
+    // whose program said stop is equally finished
+    alive = alive && !(wants && !stepped) && !stop;
     if (stepped) {
       prev = cur;
       cur = nxt;
@@ -135,48 +152,74 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, EpochIn in,
     out.prev[w] = prev;
     out.step[w] = step;
     out.alive[w] = alive;
+    if (HOOK == HOOK_PPR_NIBBLE) out.mass[w] = mass;
   }
+}
+
+template <int KIND>
+int launch(int hook, unsigned blocks, int threads, cudaStream_t s,
+           const Graph& g, const Rule& rule, const Hooks& hooks,
+           const EpochIn& in, const EpochOut& out, int n, int tile,
+           int trials, int rounds, int epoch_len, int64_t num_steps) {
+  switch (hook) {
+    case HOOK_NONE:
+      fused_epoch_kernel<KIND, HOOK_NONE><<<blocks, threads, 0, s>>>(
+          g, rule, hooks, in, out, n, tile, trials, rounds, epoch_len,
+          num_steps);
+      break;
+    case HOOK_PPR_NIBBLE:
+      fused_epoch_kernel<KIND, HOOK_PPR_NIBBLE><<<blocks, threads, 0, s>>>(
+          g, rule, hooks, in, out, n, tile, trials, rounds, epoch_len,
+          num_steps);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro
 
 extern "C" int repro_fused_epoch(
-    const int32_t* indptr, const int32_t* indices, const float* h, int program,
-    int weighted, float c0, float c2, int kind, const int64_t* cur,
-    const int64_t* prev, const int64_t* step, const bool* alive,
-    const int64_t* rng, const float* bmax, const float* cdf, const float* total,
+    const int32_t* indptr, const int32_t* indices, const float* h,
+    const int32_t* labels, const repro::Rule* rule_in, int hook, float decay,
+    float eps, int kind, const int64_t* cur, const int64_t* prev,
+    const int64_t* step, const bool* alive, const int64_t* rng,
+    const float* mass, const float* bmax, const float* cdf, const float* total,
     const float* prob, const int32_t* alias, const bool* invalid, int n,
     int tile, int trials, int rounds, int epoch_len, int64_t num_steps,
     int32_t* emitted, int32_t* flags, int64_t* ocur, int64_t* oprev,
-    int64_t* ostep, bool* oalive, void* stream) {
-  const repro::Graph g{indptr, indices, h};
-  const repro::Rule rule{program, weighted, c0, c2};
-  const repro::EpochIn in{cur, prev, step, alive, rng, bmax,
-                          cdf, total, prob, alias, invalid};
-  const repro::EpochOut out{emitted, flags, ocur, oprev, ostep, oalive};
+    int64_t* ostep, bool* oalive, float* omass, void* stream) {
+  const repro::Graph g{indptr, indices, h, labels};
+  const repro::Rule rule = *rule_in;
+  const repro::Hooks hooks{hook, decay, eps};
+  const repro::EpochIn in{cur, prev, step, alive, rng, bmax, cdf,
+                          total, prob, alias, invalid, mass};
+  const repro::EpochOut out{emitted, flags, ocur, oprev, ostep, oalive, omass};
   const int threads = 256;  // 8 walker lanes per block, one warp each
   const unsigned blocks = static_cast<unsigned>(
       (static_cast<int64_t>(n) * 32 + threads - 1) / threads);
   auto s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case repro::kReservoir:
-      repro::fused_epoch_kernel<repro::kReservoir><<<blocks, threads, 0, s>>>(
-          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
-      break;
+      return repro::launch<repro::kReservoir>(hook, blocks, threads, s, g, rule,
+                                              hooks, in, out, n, tile, trials,
+                                              rounds, epoch_len, num_steps);
     case repro::kRejection:
-      repro::fused_epoch_kernel<repro::kRejection><<<blocks, threads, 0, s>>>(
-          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
-      break;
+      return repro::launch<repro::kRejection>(hook, blocks, threads, s, g, rule,
+                                              hooks, in, out, n, tile, trials,
+                                              rounds, epoch_len, num_steps);
     case repro::kPrecompIts:
-      repro::fused_epoch_kernel<repro::kPrecompIts><<<blocks, threads, 0, s>>>(
-          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
-      break;
+      return repro::launch<repro::kPrecompIts>(hook, blocks, threads, s, g,
+                                               rule, hooks, in, out, n, tile,
+                                               trials, rounds, epoch_len,
+                                               num_steps);
     case repro::kPrecompAlias:
-      repro::fused_epoch_kernel<repro::kPrecompAlias><<<blocks, threads, 0, s>>>(
-          g, rule, in, out, n, tile, trials, rounds, epoch_len, num_steps);
-      break;
+      return repro::launch<repro::kPrecompAlias>(hook, blocks, threads, s, g,
+                                                 rule, hooks, in, out, n, tile,
+                                                 trials, rounds, epoch_len,
+                                                 num_steps);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,17 @@
-// Device weight rules of the walk programs the kernels serve.  A Python
-// weight rule cannot be traced into a hand-written kernel, so the wrapper
-// passes a program id (repro_torch/kernels/rules.py) and its float32
-// constants, and the kernel evaluates the rule here, with the reference's
-// float32 operations: Node2Vec w = factor(dist) * h, DeepWalk w = h.
+// Device rules of the walk programs the kernels serve.  A Python rule
+// cannot be traced into a hand-written kernel, so the wrapper passes a
+// program id (repro_torch/kernels/rules.py), its float32 constants and,
+// for a program with on_step / should_stop hooks, a hook id; the kernels
+// evaluate the rule here with the reference's float32 operations, each
+// rounded on its own (__f*_rn, never an FMA):
+//   DeepWalk, PPR-Nibble  w = h
+//   Node2Vec              w = factor(dist) * h
+//   MetaPath              w = [label == schema[step mod L]] * h
+//   2nd-order PageRank    w = ((1-g)/d(v) + [dist = 1] g/d(v'))
+//                             * max(d(v), d(v')) * h, d clamped at 1
+//   visited-avoiding      w = nbr in the walker's ring ? 0 : Node2Vec's w
+// and PPR-Nibble's hooks (K4): mass *= 1-alpha on a step, stop when
+// mass < eps * d(v).
 #pragma once
 #include <cstdint>
 
@@ -10,19 +19,56 @@ namespace repro {
 
 constexpr int PROGRAM_DEEPWALK = 0;
 constexpr int PROGRAM_NODE2VEC = 1;
+constexpr int PROGRAM_METAPATH = 2;
+constexpr int PROGRAM_SECOND_ORDER_PR = 3;
+constexpr int PROGRAM_VISITED = 4;
+constexpr int PROGRAM_PPR_NIBBLE = 5;
+constexpr int kMaxSchema = 8;
+
+constexpr int HOOK_NONE = 0;
+constexpr int HOOK_PPR_NIBBLE = 1;
 
 struct Graph {
   const int32_t* indptr;   // [V+1]
   const int32_t* indices;  // [E], sorted within each row
   const float* h;          // [E]
+  const int32_t* labels;   // [E]
 };
 
+// Mirrors repro_torch.kernels.rules.RuleStruct field by field.
 struct Rule {
   int program;
   int weighted;
   float c0;  // Node2Vec factor at dist 0 (1/a)
   float c2;  // Node2Vec factor at dist 2 (1/b)
+  float g1;  // 2nd-order PageRank 1 - gamma
+  float g;   // 2nd-order PageRank gamma
+  int schema_len;
+  int schema[kMaxSchema];
+  int window;  // visited-avoiding ring length
 };
+
+// The walker's side of every candidate edge's context.
+struct WalkerCtx {
+  int64_t cur, prev, step;
+  int deg_cur, deg_prev;
+  const int32_t* ring;  // [window] of the walker (visited-avoiding), or null
+};
+
+// degrees_of(): 0 for the -1 sentinel.
+__device__ __forceinline__ int degree(const Graph& g, int64_t v) {
+  return v >= 0 ? g.indptr[v + 1] - g.indptr[v] : 0;
+}
+
+// deg_prev is read only by the rule that needs it (2nd-order PageRank).
+__device__ __forceinline__ WalkerCtx walker_ctx(const Graph& g,
+                                                const Rule& rule, int64_t cur,
+                                                int64_t prev, int64_t step,
+                                                const int32_t* ring) {
+  const int deg_prev =
+      rule.program == PROGRAM_SECOND_ORDER_PR ? degree(g, prev) : 0;
+  return WalkerCtx{cur, prev, step, degree(g, cur), deg_prev, ring};
+}
 
 // Edge (v, u) exists: lower bound of u in v's sorted row.
 __device__ __forceinline__ bool has_edge(const Graph& g, int64_t v, int64_t u) {
@@ -44,19 +90,57 @@ __device__ __forceinline__ int dist_code(const Graph& g, int64_t prev, int64_t u
   return has_edge(g, prev, u) ? 1 : 2;
 }
 
-// w~ of edge `pos` (neighbour `nbr`) for a walker whose previous node is
-// `prev`, clamped at 0 like the reference's eval_weights.
+__device__ __forceinline__ float n2v_weight(const Graph& g, const Rule& rule,
+                                            int64_t prev, int64_t nbr,
+                                            float h) {
+  const int d = dist_code(g, prev, nbr);
+  return __fmul_rn(d == 0 ? rule.c0 : (d == 1 ? 1.0f : rule.c2), h);
+}
+
+// w~ of edge `pos` (neighbour `nbr`) for walker `w`, clamped at 0 like the
+// reference's eval_weights.
 __device__ __forceinline__ float edge_weight(const Graph& g, const Rule& rule,
-                                             int64_t prev, int64_t pos,
+                                             const WalkerCtx& w, int64_t pos,
                                              int64_t nbr) {
   const float h = rule.weighted ? g.h[pos] : 1.0f;
-  float w = h;
-  if (rule.program == PROGRAM_NODE2VEC) {
-    const int d = dist_code(g, prev, nbr);
-    const float f = d == 0 ? rule.c0 : (d == 1 ? 1.0f : rule.c2);
-    w = __fmul_rn(f, h);
+  float x = h;
+  switch (rule.program) {
+    case PROGRAM_NODE2VEC:
+      x = n2v_weight(g, rule, w.prev, nbr, h);
+      break;
+    case PROGRAM_METAPATH: {
+      int64_t s = w.step % rule.schema_len;
+      if (s < 0) s += rule.schema_len;
+      x = __fmul_rn(g.labels[pos] == rule.schema[s] ? 1.0f : 0.0f, h);
+      break;
+    }
+    case PROGRAM_SECOND_ORDER_PR: {
+      const float dv = fmaxf(__int2float_rn(w.deg_cur), 1.0f);
+      const float dp = fmaxf(__int2float_rn(w.deg_prev), 1.0f);
+      const float base = __fdiv_rn(rule.g1, dv);
+      const float bonus =
+          dist_code(g, w.prev, nbr) == 1 ? __fdiv_rn(rule.g, dp) : 0.0f;
+      x = __fmul_rn(__fmul_rn(__fadd_rn(base, bonus), fmaxf(dv, dp)), h);
+      break;
+    }
+    case PROGRAM_VISITED: {
+      bool tabu = false;
+      for (int i = 0; i < rule.window; ++i) tabu |= w.ring[i] == nbr;
+      x = tabu ? 0.0f : n2v_weight(g, rule, w.prev, nbr, h);
+      break;
+    }
+    default:  // DeepWalk, PPR-Nibble: h * 1.0
+      break;
   }
-  return fmaxf(w, 0.0f);
+  return fmaxf(x, 0.0f);
 }
+
+// A program's hooks in device form (K4), mirroring
+// repro_torch.kernels.rules.HookRule.
+struct Hooks {
+  int kind;
+  float decay;  // PPR-Nibble 1 - alpha
+  float eps;    // PPR-Nibble epsilon
+};
 
 }  // namespace repro

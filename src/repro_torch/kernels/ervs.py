@@ -8,50 +8,76 @@ on first use) or raises.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core.ervs import ervs_jump_step, ervs_step
 from repro_torch.kernels import build
-from repro_torch.kernels.rules import DEEPWALK, NODE2VEC, KernelRule
+from repro_torch.kernels.rules import (DEEPWALK, METAPATH, NODE2VEC,
+                                       PPR_NIBBLE, SECOND_ORDER_PR, VISITED,
+                                       KernelRule)
+
+#: rule ids ``csrc/weights.cuh`` implements
+DEVICE_RULES = (DEEPWALK, NODE2VEC, METAPATH, SECOND_ORDER_PR, VISITED,
+                PPR_NIBBLE)
 
 
 def kernel_rule(program, params) -> KernelRule:
     """The program's device weight rule; raises for programs the kernels do
     not implement."""
     rule = program.kernel_rule(params) if program.kernel_rule else None
-    if rule is None or rule.program not in (DEEPWALK, NODE2VEC):
+    if rule is None or rule.program not in DEVICE_RULES:
         raise ValueError(f"program {program.name!r} has no device weight "
                          f"rule the CUDA kernels implement")
     return rule
 
 
+def walker_inputs(graph, rule: KernelRule, cur, prev, step, keys, wstate,
+                  dev):
+    """Check what a per-walker kernel reads beside the graph, and return
+    the pointer of the walkers' ring rows (visited-avoiding; else None)."""
+    n = cur.shape[0]
+    build.require_graph(graph, dev)
+    for name, t in (("cur", cur), ("prev", prev), ("step", step)):
+        build.require(t, name, torch.int64, (n,), dev)
+    build.require(keys, "keys", torch.int64, (n, 2), dev)
+    if rule.program != VISITED:
+        return None
+    if wstate is None:
+        raise ValueError("the visited-avoiding rule reads the walkers' "
+                         "rings: pass wstate")
+    build.require(wstate[0], "wstate[0]", torch.int32, (n, rule.window), dev)
+    return wstate[0].data_ptr()
+
+
 def ervs_select(graph, program, params, cur, prev, step, keys, *,
-                tile: int = 256, jump: bool = False) -> torch.Tensor:
+                tile: int = 256, jump: bool = False,
+                wstate=None) -> torch.Tensor:
     """Next node [n] (int64; -1 when no neighbour has a positive weight) of
-    the n walkers at ``cur`` with previous nodes ``prev`` and per-step keys
-    ``keys`` [n, 2]."""
+    the n walkers at ``cur`` with previous nodes ``prev``, steps ``step``,
+    program state ``wstate`` and per-step keys ``keys`` [n, 2]."""
     if cur.device.type == "cpu":
         plain = ervs_jump_step if jump else ervs_step
         return plain(graph, program, params, cur, prev, step, keys,
-                     tile=tile)
+                     tile=tile, wstate=wstate)
     rule = kernel_rule(program, params)
     n = cur.shape[0]
     dev = cur.device
-    build.require_graph(graph, dev)
-    build.require(cur, "cur", torch.int64, (n,), dev)
-    build.require(prev, "prev", torch.int64, (n,), dev)
-    build.require(keys, "keys", torch.int64, (n, 2), dev)
+    ring = walker_inputs(graph, rule, cur, prev, step, keys, wstate, dev)
     if tile < 1:
         raise ValueError(f"tile must be positive, got {tile}")
     out = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
         return out
     lib = build.library("ervs")
+    rs = rule.as_struct()
     err = lib.repro_ervs_select(
         graph.indptr.data_ptr(), graph.indices.data_ptr(),
-        graph.h.data_ptr(), rule.program, int(rule.weighted), rule.c0,
-        rule.c2, cur.data_ptr(), prev.data_ptr(), keys.data_ptr(), n, tile,
-        int(jump), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        graph.h.data_ptr(), graph.labels.data_ptr(), ctypes.byref(rs),
+        cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring,
+        keys.data_ptr(), n, tile, int(jump), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "ervs_select")
     build.LAUNCHES["ervs_jump_select" if jump else "ervs_select"] += 1
     return out

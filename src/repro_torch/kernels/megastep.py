@@ -19,8 +19,14 @@ It reads the plain CSR: the TPU kernel's ``[R, 128]`` row alignment and
 slack tiles were DMA constraints.  The logical ``tile`` stays, since it
 feeds the reservoir's RNG counters.  Every draw uses the staged scan's
 Threefry counters, so paths, end state and flags equal the staged scan's
-bit for bit.  Programs with ``on_step`` / ``should_stop`` hooks are
-refused (``flexi_compiler.fuse_report``); the port has none yet.
+bit for bit.
+
+A program with ``on_step`` / ``should_stop`` hooks runs them inside the
+epoch as the staged step does (the reference kernel's hook branch): on
+the transition ctx, committed on the lanes that moved, a stop folded into
+``alive``; the program state comes in and goes out in
+``WalkerState.wstate``.  The kernel implements one hook rule,
+PPR-Nibble's; :func:`runs_hooks` says whether a program's hooks are it.
 
 On CPU tensors :func:`fused_epoch` runs :func:`fused_epoch_plain`, a loop
 over the steps that calls the plain selectors; on CUDA tensors it launches
@@ -28,23 +34,40 @@ K4 (building it on first use) or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import flexi_compiler as fc
-from repro_torch.core.ctxutil import degrees_of
+from repro_torch.core.ctxutil import apply_hooks, degrees_of, transition_ctx
 from repro_torch.core.erjs import erjs_step
 from repro_torch.core.ervs import ervs_step
 from repro_torch.core.precomp import (PrecompTables, alias_offsets,
                                       its_offsets, offset_nodes)
-from repro_torch.core.types import StepStats, WalkerState
+from repro_torch.core.types import StepStats, WalkerState, wstate_rows
 from repro_torch.kernels import build
 from repro_torch.kernels.ervs import kernel_rule
 from repro_torch.kernels.prng import fold_in
+from repro_torch.kernels.rules import HOOK_NONE, HOOK_PPR_NIBBLE, HookRule
 
 #: fused regimes, in the order of the kernel's instances
 FUSED_KINDS = ("reservoir", "rejection", "precomp_its", "precomp_alias")
+
+
+def kernel_hooks(program, params) -> HookRule:
+    """The device form of the program's hooks (HOOK_NONE without hooks)."""
+    if not program.has_hooks:
+        return HookRule(HOOK_NONE)
+    return program.hook_rule(params)
+
+
+def runs_hooks(program) -> bool:
+    """Whether the kernel implements the program's hooks: none, or a
+    declared device form the kernel has an instance for."""
+    return not program.has_hooks or (
+        program.hook_rule is not None
+        and kernel_hooks(program, program.params()).kind == HOOK_PPR_NIBBLE)
 
 
 def _check(program, kind, bmax, tables) -> None:
@@ -54,6 +77,9 @@ def _check(program, kind, bmax, tables) -> None:
     if not rep.fusable:
         raise ValueError(f"program {program.name!r} cannot run fused: "
                          f"{'; '.join(rep.reasons)}")
+    if not runs_hooks(program):
+        raise ValueError(f"program {program.name!r}: the fused epoch does "
+                         f"not implement its hook rule")
     if kind == "rejection" and bmax is None:
         raise ValueError("kind='rejection' needs the baked bound table bmax")
     if kind.startswith("precomp") and tables is None:
@@ -79,6 +105,7 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
             tables=tables)
     _check(program, kind, bmax, tables)
     rule = kernel_rule(program, params)
+    hooks = kernel_hooks(program, params)
     W, T = state.cur.shape[0], int(epoch_len)
     V, E = graph.num_nodes, graph.num_edges
     dev = state.cur.device
@@ -88,6 +115,10 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
                       (W,), dev)
     build.require(state.alive, "state.alive", torch.bool, (W,), dev)
     build.require(state.rng, "state.rng", torch.int64, (W, 2), dev)
+    mass = None
+    if hooks.kind == HOOK_PPR_NIBBLE:
+        mass = state.wstate[0]
+        build.require(mass, "wstate[0] (mass)", torch.float32, (W,), dev)
     if tile < 1 or T < 1 or rjs_trials < 1 or rjs_max_rounds < 1:
         raise ValueError(f"tile, epoch_len, rjs_trials and rjs_max_rounds "
                          f"must be positive, got {tile}, {T}, {rjs_trials}, "
@@ -115,33 +146,40 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
             ptr["alias"] = tables.alias_off.data_ptr()
     emitted = torch.empty((W, T), dtype=torch.int32, device=dev)
     flags = torch.empty((W, T), dtype=torch.int32, device=dev)
+    out_mass = None if mass is None else torch.empty_like(mass)
     out = WalkerState(cur=torch.empty_like(state.cur),
                       prev=torch.empty_like(state.prev),
                       step=torch.empty_like(state.step),
-                      alive=torch.empty_like(state.alive), rng=state.rng)
+                      alive=torch.empty_like(state.alive), rng=state.rng,
+                      wstate=state.wstate if mass is None else (out_mass,))
     if W == 0:
         return out, emitted, flags
     lib = build.library("megastep")
+    rs = rule.as_struct()
+    ptr_of = lambda t: None if t is None else t.data_ptr()
     err = lib.repro_fused_epoch(
         graph.indptr.data_ptr(), graph.indices.data_ptr(),
-        graph.h.data_ptr(), rule.program, int(rule.weighted), rule.c0,
-        rule.c2, FUSED_KINDS.index(kind), state.cur.data_ptr(),
-        state.prev.data_ptr(), state.step.data_ptr(), state.alive.data_ptr(),
-        state.rng.data_ptr(), ptr["bmax"], ptr["cdf"], ptr["total"],
-        ptr["prob"], ptr["alias"], ptr["invalid"], W, tile, rjs_trials,
-        rjs_max_rounds, T, int(num_steps), emitted.data_ptr(),
-        flags.data_ptr(), out.cur.data_ptr(), out.prev.data_ptr(),
-        out.step.data_ptr(), out.alive.data_ptr(),
+        graph.h.data_ptr(), graph.labels.data_ptr(), ctypes.byref(rs),
+        hooks.kind, hooks.decay, hooks.eps, FUSED_KINDS.index(kind),
+        state.cur.data_ptr(), state.prev.data_ptr(), state.step.data_ptr(),
+        state.alive.data_ptr(), state.rng.data_ptr(), ptr_of(mass),
+        ptr["bmax"], ptr["cdf"], ptr["total"], ptr["prob"], ptr["alias"],
+        ptr["invalid"], W, tile, rjs_trials, rjs_max_rounds, T,
+        int(num_steps), emitted.data_ptr(), flags.data_ptr(),
+        out.cur.data_ptr(), out.prev.data_ptr(), out.step.data_ptr(),
+        out.alive.data_ptr(), ptr_of(out_mass),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, f"fused_epoch[{kind}]")
     build.LAUNCHES[f"fused_epoch_{kind}"] += 1
     return out, emitted, flags
 
 
-def _reservoir(graph, program, params, cur, prev, step, keys, lanes, tile):
+def _reservoir(graph, program, params, cur, prev, step, keys, wstate, lanes,
+               tile):
     """Plain eRVS of the listed lanes (next node per lane, -1 if none)."""
     return ervs_step(graph, program, params, cur[lanes], prev[lanes],
-                     step[lanes], keys[lanes], tile=tile)
+                     step[lanes], keys[lanes], tile=tile,
+                     wstate=wstate_rows(wstate, lanes))
 
 
 def fused_epoch_plain(graph, program, params, state: WalkerState, *,
@@ -153,10 +191,11 @@ def fused_epoch_plain(graph, program, params, state: WalkerState, *,
     """Plain version of K4: a loop over ``epoch_len`` steps calling the
     plain selectors (``core.ervs.ervs_step``, ``core.erjs.erjs_step``,
     ``core.precomp.its_offsets`` / ``alias_offsets``) on each regime's
-    lanes, with the kernel's flag words.  Returns what
-    :func:`fused_epoch` returns."""
+    lanes, with the kernel's flag words and the program's hooks.  Returns
+    what :func:`fused_epoch` returns."""
     _check(program, kind, bmax, tables)
     cur, prev, step, alive = state.cur, state.prev, state.step, state.alive
+    wstate = state.wstate
     W, dev = cur.shape[0], cur.device
     emitted = torch.full((W, epoch_len), -1, dtype=torch.int32, device=dev)
     flags = torch.zeros((W, epoch_len), dtype=torch.int32, device=dev)
@@ -170,14 +209,14 @@ def fused_epoch_plain(graph, program, params, state: WalkerState, *,
         nxt = torch.full_like(cur, -1)
         extra = torch.zeros(W, dtype=torch.int32, device=dev)
         lanes = live.nonzero().squeeze(1)
-        args = (graph, program, params, cur, prev, step, keys)
+        args = (graph, program, params, cur, prev, step, keys, wstate)
         if kind == "reservoir":
             nxt[lanes] = _reservoir(*args, lanes, tile)
         elif kind == "rejection":
             chosen, fb, _ = erjs_step(
                 graph, program, params, cur[lanes], prev[lanes], step[lanes],
                 keys[lanes], bmax[cur[lanes]], trials_per_round=rjs_trials,
-                max_rounds=rjs_max_rounds)
+                max_rounds=rjs_max_rounds, wstate=wstate_rows(wstate, lanes))
             nxt[lanes] = chosen
             extra[lanes] = torch.where(
                 fb, bit(StepStats.FALLBACK),
@@ -198,10 +237,16 @@ def fused_epoch_plain(graph, program, params, state: WalkerState, *,
         stepped = live & (nxt >= 0)
         emitted[:, t] = torch.where(stepped, nxt, -1).to(torch.int32)
         flags[:, t] = torch.where(live, bit(StepStats.LIVE) | extra, zero)
-        # a lane that wanted to step but could not has dead-ended
-        alive = alive & ~(wants & ~stepped)
+        stop = torch.zeros_like(stepped)
+        if program.has_hooks:
+            tctx = transition_ctx(graph, cur, prev, step, nxt, deg)
+            wstate, stop = apply_hooks(program, params, tctx, wstate,
+                                       stepped)
+        # a lane that wanted to step but could not has dead-ended; a lane
+        # whose program said stop is equally finished
+        alive = alive & ~(wants & ~stepped) & ~stop
         prev = torch.where(stepped, cur, prev)
         cur = torch.where(stepped, nxt, cur)
         step = step + stepped.to(torch.int64)
     return (WalkerState(cur=cur, prev=prev, step=step, alive=alive,
-                        rng=state.rng), emitted, flags)
+                        rng=state.rng, wstate=wstate), emitted, flags)

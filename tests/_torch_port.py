@@ -75,6 +75,23 @@ def node_offsets(indptr, indices, cur, nodes) -> np.ndarray:
                     np.int64)
 
 
+def drive(sched, starts: np.ndarray, deg: np.ndarray):
+    """``run()``'s own loop over an epoch scheduler of either package:
+    queries in start-degree order into free slots, epochs until every
+    query is done.  Returns the scheduler (its end state, paths and
+    totals)."""
+    queue = np.argsort(deg[starts], kind="stable")
+    head = 0
+    while head < starts.size or sched.busy:
+        free = sched.free_slots()
+        if head < starts.size and free.size:
+            qs = queue[head:head + free.size]
+            head += qs.size
+            sched.admit(qs, starts[qs])
+        sched.run_epoch()
+    return sched
+
+
 def chi2_critical(df: int, z: float = 3.7) -> float:
     """Wilson–Hilferty upper-tail chi-square quantile (z=3.7 ≈ p 1e-4)."""
     a = 2.0 / (9.0 * df)
