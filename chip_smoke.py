@@ -6,7 +6,7 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — compile K1–K5 from ``src/repro_torch/kernels/csrc`` with nvcc
+1. build   — compile K1–K7 from ``src/repro_torch/kernels/csrc`` with nvcc
              (one process per source, in parallel).
 2. graph   — ``power_law_graph`` at soc-LiveJournal1 scale (4,847,571
              nodes, average degree 14, uniform weights, 5 uniform edge
@@ -17,6 +17,22 @@ Phases (any failure exits non-zero and prints no result line):
              ppr_nibble (the hooked program).  Each engine builds its own
              tables; node statistics are computed once per label count
              (the graph keeps them).
+2b. ops    — the standalone kernel ops (``repro_torch.kernels.ops``) on
+             the tile-aligned [R, 128] stream of the whole graph's weights
+             (``graph_aligned_weights``, built on the host): K6
+             ``ervs_select`` (block-jump eRVS) and K7 ``erjs_select``
+             (bound-based eRJS, bound = the row's h_max, 8 trials x 16
+             rounds) over (a) one walker per node at its own row and (b)
+             the lanes of the adaptive deepwalk main run after
+             ``MID_STEP`` steps (hub-heavy), and the aligned entries of K3
+             and K5 over (a) on the deepwalk alias engine's tables.  Each
+             drive is counted (counts reset just before, read just
+             after); then each kernel is held bitwise against its plain
+             version on the card — on every walker, except K6 on (b):
+             4,096 walkers, one on each of the 64 largest distinct rows —
+             and timed on all walkers.  Then Fig. 12a's RNG-draw inputs
+             (128 walkers on rows of 512 and 4,096 weights): K6's mean
+             draws and jumped tiles, bitwise against the plain version.
 3. check   — each kernel against its plain PyTorch version on the card, on
              a few thousand walkers of the full graph (hubs included):
              K2, K3 and K5 bitwise; K1 bitwise or differing only at
@@ -35,7 +51,13 @@ Phases (any failure exits non-zero and prints no result line):
              method="adaptive", jump_threshold=8)).run(np.arange(V),
              num_steps=80)`` for every registry program (node2vec,
              deepwalk, node2vec_unweighted, metapath, metapath_unweighted,
-             2ndpr, visited_avoiding, ppr_nibble); then each fused method
+             2ndpr, visited_avoiding, ppr_nibble; 2ndpr over
+             ``MAIN_STEPS`` = 16 steps, cut from 80 to keep the smoke
+             inside its time limit: its hub fallbacks took 140 s over 80);
+             the Fig. 13 selector cells, node2vec with ``method="random"``
+             and ``"degree"`` (``SELECTOR_STEPS``: random over 16 steps,
+             cut from 80, degree over 80), which must launch K1 and K2;
+             then each fused method
              with ``step_exec="fused"`` and again ``"staged"``, for
              ppr_nibble over 80 steps and for deepwalk over
              ``DEEPWALK_PAIR_STEPS`` (16, cut from 80 to keep the smoke
@@ -70,6 +92,7 @@ shorter than eRJS's minimum.
 
 The line before the last is a JSON object with one entry per kernel and
 program (``"ervs_select/metapath"``, ``"fused_epoch_reservoir/ppr_nibble"``,
+...) or walker set of the ops (``"ervs_block_select/deepwalk_lanes"``,
 ...); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -132,6 +155,20 @@ K4_EPOCH = 16
 # steps over which phase 5 holds K4's reservoir regime against its plain
 # version on every walker (the plain row scans take minutes per step)
 K4_RESERVOIR_PLAIN_EPOCH = 1
+# main-path depth of the adaptive programs cut below WALK_STEPS to keep the
+# smoke inside its time limit (2ndpr: 140 s at 80 steps)
+MAIN_STEPS = {"2ndpr": 16}
+# the Fig. 13 selector cells: node2vec under each method, and their depth
+SELECTOR_METHODS = ("random", "degree")
+SELECTOR_STEPS = {"random": 16, "degree": 80}
+# phase 2b, the standalone ops: K7's (trials, rounds), K6's plain check
+# on the hub-heavy set (walkers, distinct largest rows among them,
+# sampling seed) and its timed launches there
+OPS_ERJS_BUDGET = (8, 16)
+OPS_PLAIN_LANES = 4096
+OPS_HUB_LANES = 64
+OPS_SEED = 14
+OPS_HUB_REPS = 2
 
 
 def fail(msg: str) -> None:
@@ -748,7 +785,7 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
         keys_all = state.stream_keys()
         deg = degrees_of(g, state.cur)
         live = state.alive & (state.step < WALK_STEPS) & (deg > 0)
-        part = eng.sampler.partition(ctx, state, live)
+        part = eng.sampler.partition(ctx, state, live, keys_all)
         params = ctx.params
         prog = eng.workload
         fb = torch.zeros_like(live)
@@ -998,7 +1035,262 @@ def time_fused(fused: dict, pname: str) -> dict:
     return rows
 
 
+# ------------------------------------------------- the standalone ops
+def ops_walkers(row0, degs, nodes, key: int):
+    """(row0, degs, seeds) of walkers at ``nodes`` of the aligned stream;
+    seeds from ``make_seeds(key_data(key), n)``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.prng import key_data
+
+    return (row0[nodes].contiguous(), degs[nodes].contiguous(),
+            ops.make_seeds(key_data(key).to(nodes.device), nodes.numel()))
+
+
+def drive_ops(label: str, fn) -> dict:
+    """Launch counts of one drive of the ops path: every count is set to 0
+    just before ``fn()`` and read just after."""
+    import torch
+    from repro_torch.kernels import build
+
+    torch.cuda.synchronize()
+    build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in build.LAUNCHES.items() if n}
+    log(f"ops [{label}]: launches {counts}")
+    return out, counts
+
+
+def ervs_block_work(nodes, degs, draws, jumped):
+    """(bytes, operations) of K6 on walkers at ``nodes``.  A tile's sum
+    and prefix sums depend on its row alone, so they are counted once per
+    distinct row: each weight read once (4 B) and summed once, and the
+    prefix sums of the row's crossing tiles (1,024 adds a tile; a row has
+    at least as many as its walker with the most).  Per walker: row0,
+    deg, seed in and three outputs out (36 B), a compare and a subtract
+    per tile; per draw a binary search of a tile (10 compares), a
+    Threefry and ~100 operations of exp, two logs and the update."""
+    import torch
+    from repro_torch.kernels.ref import TILE
+
+    tiles = torch.div(degs + TILE - 1, TILE, rounding_mode="floor")
+    crossing = (tiles - jumped).to(torch.int64)
+    rows, inv = torch.unique(nodes, return_inverse=True)
+    row_deg = torch.zeros(rows.numel(), dtype=torch.float64,
+                          device=degs.device).scatter_(
+        0, inv, degs.to(torch.float64))
+    row_cross = torch.zeros(rows.numel(), dtype=torch.int64,
+                            device=degs.device).scatter_reduce_(
+        0, inv, crossing, "amax")
+    prefix = torch.minimum(row_cross.to(torch.float64) * TILE, row_deg)
+    n_draws = float(draws.to(torch.float64).sum())
+    nbytes = 4.0 * float(row_deg.sum()) + 36.0 * degs.numel()
+    ops = float(row_deg.sum()) + float(prefix.sum()) \
+        + 2.0 * float(tiles.to(torch.float64).sum()) \
+        + n_draws * (10 + THREEFRY_OPS + 100)
+    return nbytes, ops
+
+
+def erjs_block_work(trials):
+    """(bytes, operations) of K7: per walker row0, deg, bound, seed in and
+    two outputs out (36 B), per trial one 4 B weight, a Threefry and ~10
+    operations."""
+    import torch
+
+    t = float(trials.to(torch.float64).sum())
+    return 36.0 * trials.numel() + 4.0 * t, t * (THREEFRY_OPS + 10)
+
+
+def hub_and_random_walkers(nodes, degs):
+    """At most ``OPS_PLAIN_LANES`` walkers: one on each of the
+    ``OPS_HUB_LANES`` largest distinct rows, the rest drawn at random."""
+    import numpy as np
+    import torch
+
+    by_node = torch.argsort(nodes)
+    order = by_node[torch.argsort(degs[by_node], descending=True,
+                                  stable=True)]
+    s = nodes[order]
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    hubs = order[first][:OPS_HUB_LANES]
+    rng = np.random.default_rng(OPS_SEED)
+    rest = torch.from_numpy(rng.choice(
+        nodes.numel(), min(OPS_PLAIN_LANES - hubs.numel(), nodes.numel()),
+        replace=False)).to(nodes.device)
+    idx = torch.unique(torch.cat([hubs, rest]))
+    return idx
+
+
+def check_equal(name: str, got, want, n: int) -> None:
+    import torch
+
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            fail(f"{name}: differs from its plain version on "
+                 f"{int((g != w).sum())} of {n} walkers")
+
+
+def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
+    """Phase 2b: the standalone ops on the tile-aligned stream of the whole
+    graph — K6 and K7 over (a) one walker per node at its own row and (b)
+    the lanes of the adaptive deepwalk main run after ``MID_STEP`` steps
+    (hub-heavy), and K3's and K5's aligned entries over (a).  Each drive
+    is counted; then every kernel is held bitwise against its plain
+    version on the card (K6 on (b): at most ``OPS_PLAIN_LANES`` walkers,
+    the ``OPS_HUB_LANES`` largest rows among them) and timed.  Returns
+    (rows, launches) keyed by (kernel, walker set)."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.kernels import ops, ref
+
+    dev = graph.device
+    t0 = time.perf_counter()
+    w2d, row0, degs = ops.graph_aligned_weights(graph)
+    torch.cuda.synchronize()
+    log(f"ops: aligned weight stream R={w2d.shape[0]} rows x 128 "
+        f"({w2d.numel() * 4 / 2**30:.3f} GiB) built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cdf2d, prob2d, alias2d, _, _ = ops.aligned_precomp_tables(
+        tables, graph.indptr)
+    torch.cuda.synchronize()
+    log(f"ops: aligned CDF, prob and alias streams built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    h_max = deepwalk.sampler_ctx.stats.h_max
+    V = graph.num_nodes
+    nodes_a = torch.arange(V, device=dev)
+    state = mid_walk_state(deepwalk, MID_STEP["deepwalk"])
+    lanes = state.alive & (degrees_of(graph, state.cur) > 0)
+    nodes_b = state.cur[lanes].contiguous()
+    del state
+    sets = {"all_rows": (nodes_a, 1), "deepwalk_lanes": (nodes_b, 2)}
+    rows, launches, res = {}, {}, {}
+    for label, (nodes, key) in sets.items():
+        r0, dg, seeds = ops_walkers(row0, degs, nodes, key)
+        bnd = h_max[nodes].contiguous()
+        tot = tables.total[nodes].contiguous()
+        trials, rounds = OPS_ERJS_BUDGET
+
+        def drive():
+            out = {"ervs_block_select": ops.ervs_select(w2d, r0, dg, seeds),
+                   "erjs_block_select": ops.erjs_select(
+                       w2d, r0, dg, bnd, seeds, trials, rounds)}
+            if label == "all_rows":
+                out["its_search_aligned"] = (ops.its_search(
+                    cdf2d, r0, dg, tot, seeds),)
+                out["alias_pick_aligned"] = (ops.alias_pick(
+                    prob2d, alias2d, r0, dg, tot, seeds),)
+            return out
+
+        out, counts = drive_ops(label, drive)
+        for name in out:
+            if counts.get(name, 0) <= 0:
+                fail(f"ops [{label}] never launched {name}")
+            launches[name, label] = counts[name]
+        res[label] = (r0, dg, seeds, bnd, tot, out)
+    for label, (r0, dg, seeds, bnd, tot, out) in res.items():
+        n = r0.numel()
+        trials, rounds = OPS_ERJS_BUDGET
+        # K7, K3 and K5 on every walker of the set
+        want, plain_ms = cuda_once(lambda: ref.erjs_select_ref(
+            w2d, r0, dg, bnd, seeds, trials, rounds))
+        check_equal(f"erjs_block_select [{label}]",
+                    out["erjs_block_select"], want, n)
+        ms = cuda_ms(lambda: ops.erjs_select(w2d, r0, dg, bnd, seeds, trials,
+                                             rounds), reps)
+        b_ms, b_by = bound(*erjs_block_work(want[1]))
+        rows["erjs_block_select", label] = dict(
+            lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            checked=n, accepted=int((want[0] >= 0).sum()),
+            mean_trials=float(want[1].double().mean()))
+        if label == "all_rows":
+            pr = probes(dg)
+            for name, run, plain, nb, nops in (
+                    ("its_search_aligned",
+                     lambda: ops.its_search(cdf2d, r0, dg, tot, seeds),
+                     lambda: ref.its_search_ref(cdf2d, r0, dg, tot, seeds),
+                     float((32.0 + 4.0 * pr).sum()),
+                     float((THREEFRY_OPS + 10 + 3 * pr).sum())),
+                    ("alias_pick_aligned",
+                     lambda: ops.alias_pick(prob2d, alias2d, r0, dg, tot,
+                                            seeds),
+                     lambda: ref.alias_pick_ref(prob2d, alias2d, r0, dg, tot,
+                                                seeds),
+                     40.0 * n, n * (THREEFRY_OPS + 10.0))):
+                want, plain_ms = cuda_once(plain)
+                check_equal(f"{name} [{label}]", out[name], (want,), n)
+                b_ms, b_by = bound(nb, nops)
+                rows[name, label] = dict(
+                    lanes=n, ms=cuda_ms(run, reps), plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, checked=n)
+        # K6: every walker of (a); the largest rows and others of (b)
+        got = out["ervs_block_select"]
+        if label == "all_rows":
+            idx = torch.arange(n, device=dev)
+        else:
+            idx = hub_and_random_walkers(sets[label][0], dg)
+        want, plain_ms = cuda_once(lambda: ref.ervs_select_ref(
+            w2d, r0[idx].contiguous(), dg[idx].contiguous(),
+            seeds[idx].contiguous()))
+        check_equal(f"ervs_block_select [{label}]",
+                    tuple(x[idx] for x in got), want, idx.numel())
+        ms = cuda_ms(lambda: ops.ervs_select(w2d, r0, dg, seeds),
+                     reps if label == "all_rows" else OPS_HUB_REPS)
+        b_ms, b_by = bound(*ervs_block_work(sets[label][0], dg, got[1],
+                                            got[2]))
+        rows["ervs_block_select", label] = dict(
+            lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            checked=int(idx.numel()),
+            mean_draws=float(got[1].double().mean()),
+            mean_jumped=float(got[2].double().mean()),
+            mean_deg=float(dg.double().mean()))
+    for (name, label), r in rows.items():
+        extra = "".join(f", {k} {r[k]:.4f}" for k in (
+            "mean_deg", "mean_draws", "mean_jumped", "mean_trials")
+            if k in r)
+        log(f"time {name} [{label}]: {r['lanes']} walkers, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (on "
+            f"{r['checked']} walkers, bitwise equal), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
+    fig12a_on_card(dev)
+    return rows, launches
+
+
+def fig12a_on_card(dev) -> None:
+    """Fig. 12a's RNG-draw inputs (benchmarks/fig12_kernel_ablation.py):
+    128 walkers on one row of uniform(0.5, 5.0) weights from
+    ``default_rng(0)``, ``make_seeds(key(1), 128)``; K6 on the card, held
+    bitwise against its plain version."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.prng import key_data
+    from repro_torch.kernels.ref import TILE
+
+    for deg in (512, 4096):
+        vals = np.random.default_rng(0).uniform(0.5, 5.0, deg).astype(
+            np.float32)
+        w2d, row0, dg = ops.align_rows(vals, np.array([0, deg]), device=dev)
+        r0, d = row0.repeat(128), dg.repeat(128)
+        seeds = ops.make_seeds(key_data(1).to(dev), 128)
+        got = ops.ervs_select(w2d, r0, d, seeds)
+        check_equal(f"fig12a deg {deg}", got,
+                    ref.ervs_select_ref(w2d, r0, d, seeds), 128)
+        log(f"fig12a deg {deg}: 128 walkers, mean draws "
+            f"{float(got[1].double().mean()):.4f} (a draw per weight: "
+            f"{deg}), mean jumped tiles {float(got[2].double().mean()):.4f}"
+            f" of {(deg + TILE - 1) // TILE}")
+
+
 SOURCES = {
+    "ervs_block_select": ("src/repro_torch/kernels/csrc/ervs_block.cu",
+                          "src/repro/kernels/ervs_kernel.py:109"),
+    "erjs_block_select": ("src/repro_torch/kernels/csrc/erjs_block.cu",
+                          "src/repro/kernels/erjs_kernel.py:73"),
+    "its_search_aligned": ("src/repro_torch/kernels/csrc/its.cu",
+                           "src/repro/kernels/precomp_kernel.py:95"),
+    "alias_pick_aligned": ("src/repro_torch/kernels/csrc/alias.cu",
+                           "src/repro/kernels/precomp_kernel.py:154"),
     "ervs_select": ("src/repro_torch/kernels/csrc/ervs.cu",
                     "src/repro/kernels/megastep_kernel.py:185"),
     "ervs_jump_select": ("src/repro_torch/kernels/csrc/ervs.cu",
@@ -1094,6 +1386,11 @@ def main() -> int:
                 f"{time.perf_counter() - t0:.1f} s, step_exec resolved "
                 f"{fused[pname][kind].step_exec_resolved!r}")
 
+    # 2b. the standalone ops on the aligned stream of the whole graph
+    ops_rows, ops_launches = ops_phase(
+        graph, adaptive["deepwalk"], fused["deepwalk"]["precomp_alias"]
+        .precomp, args.reps)
+
     # 3. kernels against their plain versions
     check_kernels(graph, adaptive["node2vec"], adaptive["deepwalk"], seed=11)
     log("check: erjs_select and its_search bitwise equal to their plain "
@@ -1107,10 +1404,20 @@ def main() -> int:
     # method against staged
     launches, launched = {}, {}
     for pname, eng in adaptive.items():
-        counts = main_path(eng, pname, args.steps, ADAPTIVE_NEEDS[pname])
+        counts = main_path(eng, pname, min(args.steps, MAIN_STEPS.get(
+            pname, WALK_STEPS)), ADAPTIVE_NEEDS[pname])
         launched[pname] = [name for name, n in counts.items() if n]
         for name in launched[pname]:
             launches[name, pname] = counts[name]
+    # the Fig. 13 selector baselines on node2vec: eRJS or plain eRVS per
+    # lane, by a coin flip or by degree (K2 and K1's plain instance)
+    for method in SELECTOR_METHODS:
+        eng = WalkEngine(graph, make_workload("node2vec"),
+                         EngineConfig(method=method))
+        main_path(eng, f"node2vec/{method}", min(
+            args.steps, SELECTOR_STEPS[method]),
+            ("ervs_select", "erjs_select"))
+        del eng
     for pname in FUSED_PROGRAMS:
         steps = (min(args.steps, DEEPWALK_PAIR_STEPS) if pname == "deepwalk"
                  else args.steps)
@@ -1152,6 +1459,16 @@ def main() -> int:
             "mismatches": r["mismatches"],
             **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms")
                if k in r}})
+    for (name, label), n in ops_launches.items():
+        r = ops_rows[name, label]
+        src, replaces = SOURCES[name]
+        kernels.append({
+            "name": f"{name}/{label}", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": n, "max_abs_err": 0,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "lanes": r["lanes"],
+            "checked": r["checked"], "mismatches": 0})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -65,6 +65,9 @@ class EngineConfig:
     rjs_max_rounds: int = 16
     cost_model: CostModel = dataclasses.field(default_factory=CostModel)
     seed: int = 0
+    # rows of at least this degree take eRJS under the "degree" selector
+    # (Fig. 13 baseline)
+    degree_threshold: int = 1024
     # degree at which the adaptive reservoir switches from plain eRVS to
     # the A-ExpJ jump variant
     jump_threshold: int = 1024

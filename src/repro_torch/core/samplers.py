@@ -2,9 +2,12 @@
 ``repro/core/samplers.py``).
 
 The engine resolves ``EngineConfig.method`` through the registry and calls
-``sampler.select(ctx, state, keys, active=live)`` once per step.  This
-slice registers ``adaptive``, ``ervs``, ``ervs_jump``, ``erjs``,
-``its_precomp`` and ``alias_precomp``.  ``Sampler.fused_kind`` names the
+``sampler.select(ctx, state, keys, active=live)`` once per step.  The port
+registers ``adaptive``, ``ervs``, ``ervs_jump``, ``erjs``, ``its_precomp``,
+``alias_precomp`` and the Fig. 13 selector baselines ``random`` and
+``degree`` (a coin flip, and rejection for rows of at least
+``EngineConfig.degree_threshold``: eRJS or plain eRVS, no tables, no jump
+reservoir, staged only).  ``Sampler.fused_kind`` names the
 fused-epoch regime (``kernels/megastep.FUSED_KINDS``) that reproduces a
 sampler bit for bit, or None when it has none and must run staged.
 
@@ -35,6 +38,7 @@ from repro_torch.kernels.alias import alias_pick
 from repro_torch.kernels.erjs import erjs_select
 from repro_torch.kernels.ervs import ervs_select
 from repro_torch.kernels.its import its_search
+from repro_torch.kernels.prng import fold_in, random_bits, uniform_from_bits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,19 +204,38 @@ class ERJSRejection:
         return nxt, fb
 
 
+# A policy maps (ctx, state, est, deg, active, keys) -> bool [W]: which of
+# the active lanes go to the rejection partition this step (``keys``: the
+# per-walker, per-step keys [W, 2]).
 SelectorPolicy = Callable[..., torch.Tensor]
+# fold-in constant of the random policy's coin (the reference's)
+RANDOM_POLICY_SALT = 777
 
 
-def cost_model_policy(ctx, state, est, deg, active):
+def cost_model_policy(ctx, state, est, deg, active, keys):
     """Eq. 11: rejection wins when ratio·max-bound < Σ-estimate."""
     return ctx.config.cost_model.prefer_rjs(est.bound_max, est.sum_est, deg)
 
 
-def always_policy(ctx, state, est, deg, active):
+def always_policy(ctx, state, est, deg, active, keys):
     """All-rejection (the pure ``erjs`` method); needs a usable bound."""
     if not ctx.compiled.usable:
         return torch.zeros_like(active)
     return torch.ones_like(active)
+
+
+def random_policy(ctx, state, est, deg, active, keys):
+    """Coin-flip selection (Fig. 13 baseline): ``jax.random.bernoulli`` at
+    p = 0.5 of ``fold_in(key, 777)`` — its uniform below 0.5."""
+    bits = random_bits(fold_in(keys, RANDOM_POLICY_SALT))
+    coin = uniform_from_bits(bits, minval=0.0, maxval=1.0) < 0.5
+    return coin & (est.bound_max > 0)
+
+
+def degree_policy(ctx, state, est, deg, active, keys):
+    """Degree-threshold selection (Fig. 13 baseline): rejection for rows of
+    at least ``EngineConfig.degree_threshold``."""
+    return (deg >= ctx.config.degree_threshold) & (est.bound_max > 0)
 
 
 @dataclasses.dataclass
@@ -239,7 +262,9 @@ class PartitionedSampler(Sampler):
         self.jump_reservoir = jump_reservoir
         self.caps = SamplerCaps(needs_precomp=precomp_regime)
 
-    def partition(self, ctx, state, active) -> Partition:
+    def partition(self, ctx, state, active, keys) -> Partition:
+        """Split the ``active`` lanes; ``keys`` are the per-step keys [W, 2]
+        the policy may draw from."""
         deg = degrees_of(ctx.graph, state.cur)
         est = ctx.estimates(state)
         if self.precomp_regime and ctx.precomp is not None:
@@ -252,7 +277,7 @@ class PartitionedSampler(Sampler):
             want_pre = torch.zeros_like(active)
             stale_pre = torch.zeros_like(active)
         rest = active & ~want_pre
-        want_rjs = self.policy(ctx, state, est, deg, rest) & rest
+        want_rjs = self.policy(ctx, state, est, deg, rest, keys) & rest
         return Partition(deg, est, want_pre, stale_pre, want_rjs)
 
     def reservoir_split(self, ctx, part: Partition, res_active):
@@ -273,7 +298,7 @@ class PartitionedSampler(Sampler):
         return "rejection" if usable else "reservoir"
 
     def select(self, ctx, state, keys, *, active):
-        part = self.partition(ctx, state, active)
+        part = self.partition(ctx, state, active, keys)
         nxt_pre = precomp_table_select(ctx, state, keys, part.want_pre,
                                        kind="its")
         rest = active & ~part.want_pre
@@ -368,5 +393,7 @@ register_sampler(PartitionedSampler("adaptive", cost_model_policy,
 register_sampler(ERVSSampler())
 register_sampler(ERVSJumpSampler())
 register_sampler(PartitionedSampler("erjs", always_policy))
+register_sampler(PartitionedSampler("random", random_policy))
+register_sampler(PartitionedSampler("degree", degree_policy))
 register_sampler(ITSPrecompSampler())
 register_sampler(AliasPrecompSampler())

@@ -25,7 +25,8 @@ from typing import Dict
 from repro_torch.kernels.rules import RuleStruct
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ervs.cu", "erjs.cu", "its.cu", "alias.cu", "megastep.cu")
+SOURCES = ("ervs.cu", "erjs.cu", "its.cu", "alias.cu", "megastep.cu",
+           "ervs_block.cu", "erjs_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -36,7 +37,9 @@ LAUNCHES: Dict[str, int] = {
     "ervs_select": 0, "ervs_jump_select": 0, "erjs_select": 0,
     "its_search": 0, "alias_pick": 0, "fused_epoch_reservoir": 0,
     "fused_epoch_rejection": 0, "fused_epoch_precomp_its": 0,
-    "fused_epoch_precomp_alias": 0}
+    "fused_epoch_precomp_alias": 0, "ervs_block_select": 0,
+    "erjs_block_select": 0, "its_search_aligned": 0,
+    "alias_pick_aligned": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -107,23 +110,29 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_int64
 _R = ctypes.POINTER(RuleStruct)
 _SIGNATURES = {
-    "ervs": ("repro_ervs_select",
-             [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P]),
-    "erjs": ("repro_erjs_select",
-             [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 4),
-    "its": ("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
-    "alias": ("repro_alias_pick", [_P, _P, _P, _P, _P, _P, _I, _P, _P]),
-    "megastep": ("repro_fused_epoch",
-                 [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 12
-                 + [_I, _I, _I, _I, _I, _L] + [_P] * 8),
+    "ervs": [("repro_ervs_select",
+              [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P])],
+    "erjs": [("repro_erjs_select",
+              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 4)],
+    "its": [("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
+            ("repro_its_search_aligned", [_P] * 5 + [_I, _L, _P, _P])],
+    "alias": [("repro_alias_pick", [_P, _P, _P, _P, _P, _P, _I, _P, _P]),
+              ("repro_alias_pick_aligned", [_P] * 6 + [_I, _L, _P, _P])],
+    "megastep": [("repro_fused_epoch",
+                  [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 12
+                  + [_I, _I, _I, _I, _I, _L] + [_P] * 8)],
+    "ervs_block": [("repro_ervs_block_select",
+                    [_P] * 4 + [_I, _L] + [_P] * 4)],
+    "erjs_block": [("repro_erjs_block_select",
+                    [_P] * 5 + [_I, _L, _I] + [_P] * 3)],
 }
 
 
 def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn_name, argtypes = _SIGNATURES[stem]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _SIGNATURES[stem]:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

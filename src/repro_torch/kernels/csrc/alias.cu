@@ -4,7 +4,9 @@
 // (body _alias_kernel :124); the draw itself is alias_offset (alias.cuh).
 // The TPU kernel read the tables from [R, 128] row-aligned float32 streams
 // (alias offsets stored as floats); here they are the flat CSR-order
-// arrays, prob as float32 and the alias offsets as int32.
+// arrays, prob as float32 and the alias offsets as int32.  The aligned
+// entry runs the same draw on the [R, 128] float32 streams of
+// kernels/ops.py, for the standalone op.
 //
 // What bounds it on the H100: two dependent rounds of 4 B reads per walker
 // (indptr, then prob and alias of one column), one Threefry: a few random
@@ -31,7 +33,42 @@ __global__ void alias_kernel(const int32_t* __restrict__ indptr,
                         static_cast<uint32_t>(keys[2 * i + 1]));
 }
 
+// The standalone op on the tile-aligned streams (repro_torch.kernels.ops):
+// walker i's row starts at flat offset row0[i] * 128; alias offsets are
+// float32 there; `last` is the streams' last flat index (a column past
+// either end reads that end).
+__global__ void alias_aligned_kernel(const float* __restrict__ prob2d,
+                                     const float* __restrict__ alias2d,
+                                     const int32_t* __restrict__ row0,
+                                     const int32_t* __restrict__ degs,
+                                     const float* __restrict__ totals,
+                                     const int64_t* __restrict__ seeds, int n,
+                                     int64_t last, int32_t* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = alias_row_offset(prob2d, alias2d,
+                            static_cast<int64_t>(row0[i]) * 128, degs[i],
+                            totals[i], static_cast<uint32_t>(seeds[2 * i]),
+                            static_cast<uint32_t>(seeds[2 * i + 1]), last);
+}
+
 }  // namespace repro
+
+extern "C" int repro_alias_pick_aligned(const float* prob2d,
+                                        const float* alias2d,
+                                        const int32_t* row0,
+                                        const int32_t* degs,
+                                        const float* totals,
+                                        const int64_t* seeds, int n,
+                                        int64_t last, int32_t* out,
+                                        void* stream) {
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  repro::alias_aligned_kernel<<<blocks, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      prob2d, alias2d, row0, degs, totals, seeds, n, last, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int repro_alias_pick(const int32_t* indptr, const float* prob,
                                 const int32_t* alias, const float* total,

@@ -13,20 +13,36 @@ namespace repro {
 
 constexpr uint32_t kAliasSalt = 0xA11A5u;
 
+// The draw on the row of deg columns at prob[start] / alias[start], of
+// total tot; alias offsets are int32, or float32 holding integers (the
+// aligned streams), which convert toward zero.  A column outside
+// prob[0 .. last] reads the nearer end.
+template <typename A>
+__device__ __forceinline__ int alias_row_offset(const float* __restrict__ prob,
+                                                const A* __restrict__ alias,
+                                                int64_t start, int deg,
+                                                float tot, uint32_t k0,
+                                                uint32_t k1,
+                                                int64_t last = INT64_MAX) {
+  if (deg <= 0 || !(tot > 0.0f)) return -1;
+  float u1, u2;
+  uniform_pair_01(k0, k1, 0u, kAliasSalt, u1, u2);
+  const int col = min(__float2int_rz(__fmul_rn(u1, __int2float_rn(deg))),
+                      deg - 1);
+  int64_t p = start + col;
+  p = p < 0 ? 0 : (p > last ? last : p);
+  return u2 < prob[p] ? col : static_cast<int>(alias[p]);
+}
+
+// The draw at node v of a CSR graph.
 __device__ __forceinline__ int alias_offset(const int32_t* __restrict__ indptr,
                                             const float* __restrict__ prob,
                                             const int32_t* __restrict__ alias,
                                             const float* __restrict__ total,
                                             int64_t v, uint32_t k0,
                                             uint32_t k1) {
-  const int64_t start = indptr[v];
-  const int deg = indptr[v + 1] - indptr[v];
-  if (deg <= 0 || !(total[v] > 0.0f)) return -1;
-  float u1, u2;
-  uniform_pair_01(k0, k1, 0u, kAliasSalt, u1, u2);
-  const int col = min(__float2int_rz(__fmul_rn(u1, __int2float_rn(deg))),
-                      deg - 1);
-  return u2 < prob[start + col] ? col : alias[start + col];
+  return alias_row_offset(prob, alias, indptr[v], indptr[v + 1] - indptr[v],
+                          total[v], k0, k1);
 }
 
 }  // namespace repro

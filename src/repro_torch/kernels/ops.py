@@ -1,0 +1,230 @@
+"""Standalone kernel ops on the tile-aligned layout (port of
+``repro/kernels/ops.py``).
+
+:func:`align_rows` builds the tile-aligned CSR layout: every node's row
+starts on a 128-lane boundary of a [R, 128] stream.  The walk engine does
+not need it (its kernels read plain CSR offsets); the standalone ops below
+do, as the reference's benchmarks and kernel tests drive them:
+
+* :func:`ervs_select` — kernel K6 (``csrc/ervs_block.cu``), block-jump
+  A-ExpJ over 1024-weight tiles;
+* :func:`erjs_select` — kernel K7 (``csrc/erjs_block.cu``), bound-based
+  rejection reading one stored weight per trial;
+* :func:`its_search` / :func:`alias_pick` — the aligned entries of K3
+  (``csrc/its.cu``) and K5 (``csrc/alias.cu``), the same device code at
+  flat starts ``row0 * 128``.
+
+Each op runs its plain version (``kernels/ref.py``) on CPU tensors; on
+CUDA tensors it launches its kernel (building it on first use) or raises.
+As in the reference, a read outside the stream is clipped to it (ervs /
+erjs clip the row, ITS / alias the flat index); streams built here put
+every row inside.
+The layout is built on the host with numpy and handed back as torch
+tensors on the requested device.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.prng import fold_in
+from repro_torch.kernels.ref import LANES, SUBLANES
+
+_NP_TO_TORCH = {np.dtype(np.float32): torch.float32,
+                np.dtype(np.int32): torch.int32}
+
+
+def _layout(row_start, row_deg, bucket_rows: bool):
+    """(R, row0 [V] int64, src [E], dst [E]) of the aligned layout: value
+    ``src[e]`` of the flat stream lands at ``dst[e]`` of the [R·128]
+    stream."""
+    starts = np.asarray(row_start, np.int64)
+    degs = np.asarray(row_deg, np.int64)
+    rows_per_node = np.maximum((degs + LANES - 1) // LANES, 0)
+    row0 = np.zeros(degs.shape[0], np.int64)
+    np.cumsum(rows_per_node[:-1], out=row0[1:])
+    # a multiple of SUBLANES, with two tiles of slack past the last row
+    R = int(rows_per_node.sum()) + SUBLANES * 2
+    R = ((R + SUBLANES - 1) // SUBLANES) * SUBLANES
+    if bucket_rows:
+        R = max(SUBLANES, 1 << max(R - 1, 0).bit_length())
+    E = int(degs.sum())
+    node_of_edge = np.repeat(np.arange(degs.shape[0]), degs)
+    bounds = np.zeros(degs.shape[0] + 1, np.int64)
+    np.cumsum(degs, out=bounds[1:])
+    within = np.arange(E, dtype=np.int64) - bounds[node_of_edge]
+    src = starts[node_of_edge] + within
+    dst = row0[node_of_edge] * LANES + within
+    return R, row0, src, dst
+
+
+def _scatter(values, R: int, src, dst, dtype, device) -> torch.Tensor:
+    flat = np.zeros(R * LANES, dtype)
+    flat[dst] = np.asarray(values, dtype)[src]
+    return torch.from_numpy(flat.reshape(R, LANES)).to(
+        device=device, dtype=_NP_TO_TORCH[np.dtype(dtype)])
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def align_rows_layout(values, row_start, row_deg, dtype=np.float32,
+                      bucket_rows: bool = False, device="cuda"
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`align_rows` for an explicit (row_start, row_deg) layout: row
+    ``v`` is ``values[row_start[v] : row_start[v] + row_deg[v]]`` (a
+    delta-overlay graph's layout; contiguous CSR is ``row_start ==
+    indptr[:-1]``).  ``bucket_rows=True`` pads R up to a power of two
+    (extra rows are zero).  Returns (w2d [R, 128] of ``dtype``, row0 [V]
+    int32, degs [V] int32) on ``device``."""
+    dev = resolve_device(device)
+    degs = _host(row_deg)
+    R, row0, src, dst = _layout(_host(row_start), degs, bucket_rows)
+    w2d = _scatter(_host(values), R, src, dst, dtype, dev)
+    return (w2d, torch.from_numpy(row0.astype(np.int32)).to(dev),
+            torch.from_numpy(np.asarray(degs, np.int32)).to(dev))
+
+
+def align_rows(values, indptr, dtype=np.float32, device="cuda"
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Repack a flat CSR value stream into the tile-aligned [R, 128]
+    layout: (w2d [R, 128] of ``dtype``, row0 [V] int32 — each node's first
+    128-row, degs [V] int32), on ``device``."""
+    indptr = _host(indptr).astype(np.int64)
+    return align_rows_layout(values, indptr[:-1], np.diff(indptr),
+                             dtype=dtype, device=device)
+
+
+def graph_aligned_weights(graph):
+    """Aligned layout of a graph's property weights h, on its device."""
+    return align_rows(_host(graph.h), _host(graph.indptr),
+                      device=graph.device)
+
+
+def aligned_precomp_tables(tables, indptr):
+    """Repack precomp tables' flat [E] arrays into the aligned layout
+    (alias offsets ride the float32 stream, exact below 2^24).  Returns
+    (cdf2d, prob2d, alias2d, row0, degs) on the tables' device."""
+    tables.require_alias()
+    dev = tables.cdf.device
+    indptr = _host(indptr).astype(np.int64)
+    degs = np.diff(indptr)
+    R, row0, src, dst = _layout(indptr[:-1], degs, False)
+    streams = [_scatter(_host(a).astype(np.float32), R, src, dst,
+                        np.float32, dev)
+               for a in (tables.cdf, tables.alias_prob, tables.alias_off)]
+    return (*streams, torch.from_numpy(row0.astype(np.int32)).to(dev),
+            torch.from_numpy(degs.astype(np.int32)).to(dev))
+
+
+def make_seeds(key: torch.Tensor, n: int) -> torch.Tensor:
+    """[n, 2] Threefry seeds (int64 holding uint32) from key data [2]: the
+    reference's ``key_data(split(key, n))``, which under jax's partitionable
+    Threefry is ``fold_in(key, i)`` for i < n."""
+    return fold_in(key, torch.arange(n, dtype=torch.int64,
+                                     device=key.device))
+
+
+# ------------------------------------------------------------ the ops
+def _walkers(w2d, row0, degs, seeds, dev):
+    """The walker count, once the inputs are what the kernels take."""
+    W = row0.shape[0]
+    build.require(w2d, "w2d", torch.float32, (w2d.shape[0], LANES), dev)
+    build.require(row0, "row0", torch.int32, (W,), dev)
+    build.require(degs, "degs", torch.int32, (W,), dev)
+    build.require(seeds, "seeds", torch.int64, (W, 2), dev)
+    return W
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ervs_select(w2d, row0, degs, seeds):
+    """Block-jump A-ExpJ reservoir selection, one walker per row (K6).
+    Returns (offset [W] int32 or -1, draws [W] int32, jumped tiles [W]
+    int32)."""
+    if w2d.device.type == "cpu":
+        return ref.ervs_select_ref(w2d, row0, degs, seeds)
+    W = _walkers(w2d, row0, degs, seeds, w2d.device)
+    out = [torch.empty(W, dtype=torch.int32, device=w2d.device)
+           for _ in range(3)]
+    if W == 0:
+        return tuple(out)
+    err = build.library("ervs_block").repro_ervs_block_select(
+        w2d.data_ptr(), row0.data_ptr(), degs.data_ptr(), seeds.data_ptr(),
+        W, w2d.shape[0], *(o.data_ptr() for o in out), _stream(w2d.device))
+    build.check(err, "ervs_block_select")
+    build.LAUNCHES["ervs_block_select"] += 1
+    return tuple(out)
+
+
+def erjs_select(w2d, row0, degs, bounds, seeds, trials: int = 8,
+                max_rounds: int = 16):
+    """Bound-based rejection, at most ``trials * max_rounds`` trials (K7).
+    Returns (offset [W] int32, -1 when none was accepted, trials [W]
+    int32)."""
+    if trials < 1 or max_rounds < 1:
+        raise ValueError(f"trials and max_rounds must be positive, got "
+                         f"{trials} and {max_rounds}")
+    if w2d.device.type == "cpu":
+        return ref.erjs_select_ref(w2d, row0, degs, bounds, seeds, trials,
+                                   max_rounds)
+    W = _walkers(w2d, row0, degs, seeds, w2d.device)
+    build.require(bounds, "bounds", torch.float32, (W,), w2d.device)
+    off, used = (torch.empty(W, dtype=torch.int32, device=w2d.device)
+                 for _ in range(2))
+    if W == 0:
+        return off, used
+    err = build.library("erjs_block").repro_erjs_block_select(
+        w2d.data_ptr(), row0.data_ptr(), degs.data_ptr(), bounds.data_ptr(),
+        seeds.data_ptr(), W, w2d.shape[0], trials * max_rounds,
+        off.data_ptr(), used.data_ptr(), _stream(w2d.device))
+    build.check(err, "erjs_block_select")
+    build.LAUNCHES["erjs_block_select"] += 1
+    return off, used
+
+
+def its_search(cdf2d, row0, degs, totals, seeds):
+    """ITS draw by binary search of the aligned CDF stream (K3's aligned
+    entry).  Returns offset [W] int32, -1 for empty or zero-total rows."""
+    if cdf2d.device.type == "cpu":
+        return ref.its_search_ref(cdf2d, row0, degs, totals, seeds)
+    W = _walkers(cdf2d, row0, degs, seeds, cdf2d.device)
+    build.require(totals, "totals", torch.float32, (W,), cdf2d.device)
+    out = torch.empty(W, dtype=torch.int32, device=cdf2d.device)
+    if W == 0:
+        return out
+    err = build.library("its").repro_its_search_aligned(
+        cdf2d.data_ptr(), row0.data_ptr(), degs.data_ptr(),
+        totals.data_ptr(), seeds.data_ptr(), W, cdf2d.numel() - 1,
+        out.data_ptr(), _stream(cdf2d.device))
+    build.check(err, "its_search_aligned")
+    build.LAUNCHES["its_search_aligned"] += 1
+    return out
+
+
+def alias_pick(prob2d, alias2d, row0, degs, totals, seeds):
+    """Alias draw on the aligned streams (K5's aligned entry).  Returns
+    offset [W] int32, -1 for empty or zero-total rows."""
+    if prob2d.device.type == "cpu":
+        return ref.alias_pick_ref(prob2d, alias2d, row0, degs, totals, seeds)
+    dev = prob2d.device
+    W = _walkers(prob2d, row0, degs, seeds, dev)
+    build.require(alias2d, "alias2d", torch.float32, tuple(prob2d.shape), dev)
+    build.require(totals, "totals", torch.float32, (W,), dev)
+    out = torch.empty(W, dtype=torch.int32, device=dev)
+    if W == 0:
+        return out
+    err = build.library("alias").repro_alias_pick_aligned(
+        prob2d.data_ptr(), alias2d.data_ptr(), row0.data_ptr(),
+        degs.data_ptr(), totals.data_ptr(), seeds.data_ptr(), W,
+        prob2d.numel() - 1, out.data_ptr(), _stream(dev))
+    build.check(err, "alias_pick_aligned")
+    build.LAUNCHES["alias_pick_aligned"] += 1
+    return out

@@ -80,7 +80,8 @@ def _regimes(eng, paths):
     state = WalkerState(cur=cur, prev=prev, step=torch.from_numpy(t),
                         alive=torch.ones(cur.shape, dtype=torch.bool),
                         rng=torch.zeros((cur.shape[0], 2), dtype=torch.int64))
-    part = eng.sampler.partition(eng.sampler_ctx, state, state.alive)
+    part = eng.sampler.partition(eng.sampler_ctx, state, state.alive,
+                                  state.stream_keys())
     res = state.alive & ~part.want_pre & ~part.want_rjs
     lo, hi = eng.sampler.reservoir_split(eng.sampler_ctx, part, res)
     return dict(precomp=int(part.want_pre.sum()),
@@ -98,7 +99,8 @@ def _first_divergence_is_near_tie(eng, ref_paths, got_paths, q):
                         alive=torch.ones(1, dtype=torch.bool),
                         rng=torch.zeros((1, 2), dtype=torch.int64))
     ctx = eng.sampler_ctx
-    part = eng.sampler.partition(ctx, state, state.alive)
+    part = eng.sampler.partition(ctx, state, state.alive,
+                                 state.stream_keys())
     if bool(part.want_pre | part.want_rjs):
         return False  # ITS and eRJS decisions are bitwise: a port fault
     keys = interop.keys_from_arrays(step_keys(0, np.array([q]),

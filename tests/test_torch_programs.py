@@ -258,7 +258,8 @@ def _first_divergence_is_near_tie(eng, ref_paths, got_paths, q) -> bool:
                         rng=torch.zeros((1, 2), dtype=torch.int64),
                         wstate=ws)
     ctx = eng.sampler_ctx
-    part = eng.sampler.partition(ctx, state, state.alive)
+    part = eng.sampler.partition(ctx, state, state.alive,
+                                 state.stream_keys())
     if bool(part.want_pre | part.want_rjs):
         return False  # ITS and eRJS decisions are bitwise: a port fault
     keys = interop.keys_from_arrays(step_keys(0, np.array([q]),
