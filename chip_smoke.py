@@ -6,8 +6,22 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — compile K1–K7 from ``src/repro_torch/kernels/csrc`` with nvcc
+1. build   — compile K1–K8 from ``src/repro_torch/kernels/csrc`` with nvcc
              (one process per source, in parallel).
+1b. lm     — LM serving at full width: ``qwen3-0.6b`` (28 layers, d_model
+             1,024, vocab 151,936, bf16; random weights from
+             ``init_params`` with a seeded ``torch.Generator``) serves 8
+             requests of 16 prompt and 32 new tokens through
+             ``repro_torch.serving.generate``, sampled at T = 0.8 twice
+             and greedily once: each run must give [8, 48] int32 ids in
+             the vocab with the prompts kept and launch K8
+             (``token_sample``) once per decode step (47), and the second
+             sampled run must equal the first.  Then K8 against its plain
+             version, bitwise, at T = 0.8, T = 1.0 and greedy, on the last
+             decode step's logits [8, V], seeded normal logits [128, V]
+             (decode_32k's batch), [5, V] and a ``seed0`` that wraps mod
+             2^32; timed at [8, V] and [128, V] (greedy beside
+             ``torch.argmax``).
 2. graph   — ``power_law_graph`` at soc-LiveJournal1 scale (4,847,571
              nodes, average degree 14, uniform weights, 5 uniform edge
              labels, seed 0); one adaptive engine per registry program
@@ -35,8 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
              draws and jumped tiles, bitwise against the plain version.
 3. check   — each kernel against its plain PyTorch version on the card, on
              a few thousand walkers of the full graph (hubs included):
-             K2, K3 and K5 bitwise; K1 bitwise or differing only at
-             near-ties (two float32 keys within 2 ulp); K1 and K2 under
+             K2, K3, K5 and K1's jump instance bitwise; plain K1 bitwise
+             or differing only at near-ties (two float32 keys within 2
+             ulp); K1 and K2 under
              every program's device rule, on walkers 3 steps into their
              walks (so visited_avoiding's rings are not empty) on rows of
              at most 4,096 (phase 5 holds them on hubs); K4 for one
@@ -72,7 +87,10 @@ Phases (any failure exits non-zero and prints no result line):
              for the short MetaPath and PPR-Nibble walks) under each
              program whose main-path run launched it, with CUDA events;
              the kernel must agree with the plain version there as in
-             phase 3.  A kernel that gets no lane at that step is timed at
+             phase 3 (2ndpr's K1 jump lanes: on 4,096 of them, one on each
+             of the 64 largest distinct rows and the rest drawn at random,
+             ``JUMP_PLAIN_SUBSET``; the plain scan of all of them took
+             223 s).  A kernel that gets no lane at that step is timed at
              the first later step that gives it lanes (its row's
              ``step``); none at all fails.  K4: one
              timed launch of 16 steps per regime from the state after 8
@@ -92,8 +110,9 @@ shorter than eRJS's minimum.
 
 The line before the last is a JSON object with one entry per kernel and
 program (``"ervs_select/metapath"``, ``"fused_epoch_reservoir/ppr_nibble"``,
-...) or walker set of the ops (``"ervs_block_select/deepwalk_lanes"``,
-...); the last line is ``{"ok": true, "device": {...}}``.
+...), walker set of the ops (``"ervs_block_select/deepwalk_lanes"``,
+...) or K8 mode and logits shape (``"token_sample/sampled_b8"``, ...);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -169,6 +188,34 @@ OPS_PLAIN_LANES = 4096
 OPS_HUB_LANES = 64
 OPS_SEED = 14
 OPS_HUB_REPS = 2
+# phase 1b, LM serving: the model served at full width, its requests
+# (batch, prompt tokens, new tokens, temperature), the generator seed of
+# the weights and prompts, the sampler's key, and the seed of K8's checks
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 16, 32
+LM_TEMPERATURE = 0.8
+LM_SEED = 0
+LM_KEY = 2
+LM_CHECK_SEED = (11, 22)
+# decode steps traced with torch.profiler (device activity only: with the
+# host's too, the trace of 4 steps took ~18 s) for the card's busy time
+LM_PROFILED = 2
+# operations of one of XLA's float32 CPU logs (Cephes: frexp, a degree-8
+# polynomial in fused multiply-adds, the exponent term, the edge cases)
+XLA_LOG_OPS = 30
+# what a K1 difference from its plain version may be: plain eRVS may part
+# at a near-tie (torch's and the device's logf differ by an ulp), the jump
+# instance runs its plain version's arithmetic and must be bitwise
+K1_RULE = {False: "all near-ties", True: "none (bitwise)"}
+# phase 5: programs whose K1 jump lanes phase 5 holds against the plain
+# version on a subset (up to JUMP_PLAIN_PER_ROW lanes on each of the
+# OPS_HUB_LANES largest distinct rows, the rest drawn with
+# JUMP_PLAIN_SEED), because the plain scan of all of 2ndpr's hub lanes
+# took 223 s (~10^11 edges); K1 itself still runs and is timed on all
+# lanes
+JUMP_PLAIN_SUBSET = {"2ndpr": 4096}
+JUMP_PLAIN_PER_ROW = 16
+JUMP_PLAIN_SEED = 15
 
 
 def fail(msg: str) -> None:
@@ -269,32 +316,27 @@ def k1_mismatches(graph, program, params, cur, prev, keys, got, want,
                   tile: int, jump: bool, step=None, wstate=None):
     """(mismatches, unexplained): walkers where the kernel and the plain
     version chose differently, and those of them that are not near-ties
-    (``step`` defaults to 0; ``wstate`` is the walkers' program state)."""
+    (``step`` defaults to 0; ``wstate`` is the walkers' program state).
+    The jump instance runs its plain version's arithmetic (XLA's exp, log
+    and multiply-add), so every jump mismatch is unexplained."""
     import torch
     from repro_torch.core import ervs as ervs_mod
     from repro_torch.core.types import wstate_rows
 
     bad = (got != want).nonzero().squeeze(1)
-    if not bad.numel():
-        return 0, 0
+    if not bad.numel() or jump:
+        return int(bad.numel()), int(bad.numel())
     step = torch.zeros_like(cur) if step is None else step
     c, p, k, t = cur[bad], prev[bad], keys[bad], step[bad]
     ws = wstate_rows(wstate, bad)
-    if jump:
-        lk, _ = ervs_mod.jump_lanes(graph, program, params, c, p, t, k,
-                                    tile, torch.ones_like(c, dtype=torch.bool),
-                                    ws)
-        top2 = lk.topk(2, dim=1).values
-        near = ervs_mod.within_ulps(top2[:, 0], top2[:, 1])
-    else:
-        dev = cur.device
-        oa = torch.tensor(node_offsets(graph, c, got[bad]), device=dev)
-        ob = torch.tensor(node_offsets(graph, c, want[bad]), device=dev)
-        ka = ervs_mod.offset_keys_f64(graph, program, params, c, p, t, k,
-                                      oa, tile, ws)
-        kb = ervs_mod.offset_keys_f64(graph, program, params, c, p, t, k,
-                                      ob, tile, ws)
-        near = ervs_mod.within_ulps(ka, kb)
+    dev = cur.device
+    oa = torch.tensor(node_offsets(graph, c, got[bad]), device=dev)
+    ob = torch.tensor(node_offsets(graph, c, want[bad]), device=dev)
+    ka = ervs_mod.offset_keys_f64(graph, program, params, c, p, t, k, oa,
+                                  tile, ws)
+    kb = ervs_mod.offset_keys_f64(graph, program, params, c, p, t, k, ob,
+                                  tile, ws)
+    near = ervs_mod.within_ulps(ka, kb)
     return int(bad.numel()), int((~near).sum())
 
 
@@ -347,11 +389,11 @@ def check_kernels(graph, n2v, dw, seed: int) -> None:
                 graph, eng.workload, p, cur, prev, keys, got, want, cfg.tile,
                 jump)
             log(f"check {name} [{eng.workload.name}]: {cur.numel()} walkers, "
-                f"{n_bad} differ from the plain version, all near-ties: "
+                f"{n_bad} differ from the plain version, {K1_RULE[jump]}: "
                 f"{unexplained == 0}")
             if unexplained:
                 fail(f"{name} [{eng.workload.name}]: {unexplained} "
-                     f"differences are not near-ties")
+                     f"differences break the rule: {K1_RULE[jump]}")
 
 
 def program_walkers(eng, n: int, seed: int, steps: int = 3,
@@ -407,11 +449,11 @@ def check_rules(adaptive: dict, seed: int) -> None:
                 g, prog, p, cur, prev, keys, got, want, cfg.tile, jump,
                 step, ws)
             log(f"check {kname} [{name}]: {cur.numel()} walkers 3 steps "
-                f"in, {n_bad} differ from the plain version, all near-ties: "
-                f"{unexplained == 0}")
+                f"in, {n_bad} differ from the plain version, "
+                f"{K1_RULE[jump]}: {unexplained == 0}")
             if unexplained:
-                fail(f"{kname} [{name}]: {unexplained} differences are not "
-                     f"near-ties")
+                fail(f"{kname} [{name}]: {unexplained} differences break "
+                     f"the rule: {K1_RULE[jump]}")
         got = erjs_select(g, prog, p, cur, prev, step, keys, bnd,
                           trials=cfg.rjs_trials, rounds=cfg.rjs_max_rounds,
                           wstate=ws)
@@ -831,24 +873,52 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                                       tile=cfg.tile, jump=jump, wstate=ws)
             got = run()
             ms = cuda_ms(run, reps)
+            d = degrees_of(g, cur).to(torch.float64)
+            chk = torch.arange(idx.numel(), device=idx.device)
+            hub_all = None
+            if jump and pname in JUMP_PLAIN_SUBSET:
+                chk = hub_and_random_walkers(cur, d, JUMP_PLAIN_SUBSET[pname],
+                                             JUMP_PLAIN_SEED,
+                                             JUMP_PLAIN_PER_ROW)
+                hub_all = on_hub_rows(cur, d)[0]
+            c_cur, c_prev, c_step, c_keys = (
+                x[chk].contiguous() for x in (cur, prev, step, keys))
+            c_ws = wstate_rows(ws, chk)
             want, plain_ms = cuda_once(lambda: plain_fn(
-                g, prog, params, cur, prev, step, keys, tile=cfg.tile,
-                wstate=ws))
-            n_bad, unexplained = k1_mismatches(g, prog, params, cur, prev,
-                                               keys, got, want, cfg.tile,
-                                               jump, step, ws)
+                g, prog, params, c_cur, c_prev, c_step, c_keys,
+                tile=cfg.tile, wstate=c_ws))
+            n_bad, unexplained = k1_mismatches(g, prog, params, c_cur,
+                                               c_prev, c_keys, got[chk],
+                                               want, cfg.tile, jump, c_step,
+                                               c_ws)
             if unexplained:
                 fail(f"{name} [{pname}] at main-path shapes: {unexplained} "
-                     f"differences from the plain version are not near-ties")
-            d = degrees_of(g, cur).to(torch.float64)
+                     f"differences from the plain version break the rule: "
+                     f"{K1_RULE[jump]}")
             nbytes = float((64.0 + lane_bytes(ws, pname)
                             + d * edge_bytes(g, prev, pname)).sum())
             per_edge = (4 * THREEFRY_OPS + 80) if jump else THREEFRY_OPS + 40
             b_ms, b_by = bound(nbytes, float(d.sum()) * per_edge)
             rows[name, pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
-                plain_ms=plain_ms, max_abs_err=int((got - want).abs().max()),
-                mismatches=n_bad, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms,
+                max_abs_err=int((got[chk] - want).abs().max()),
+                mismatches=n_bad, bound_ms=b_ms, bound_by=b_by,
+                checked=int(chk.numel()))
+            if hub_all is not None:
+                # what checking every lane on the largest rows would take,
+                # at the plain version's rate per edge on the checked set
+                hub_edges = float(d[hub_all].sum())
+                chk_edges = float(d[chk].sum())
+                n_hub_chk = int(torch.isin(chk, hub_all).sum())
+                log(f"check {name} [{pname}]: plain version on "
+                    f"{chk.numel()} of {idx.numel()} lanes ({n_hub_chk} on "
+                    f"the {OPS_HUB_LANES} largest rows, up to "
+                    f"{JUMP_PLAIN_PER_ROW} each), {chk_edges:.0f} edges in "
+                    f"{plain_ms / 1e3:.1f} s; every lane on those rows would "
+                    f"be {hub_all.numel()} lanes, {hub_edges:.0f} edges, "
+                    f"about {plain_ms / 1e3 * hub_edges / chk_edges:.0f} s "
+                    f"at that rate (estimate)")
         if "its_search" in names and bool(part.want_pre.any()):
             cur, _, _, idx, _ = lanes_of(state, part.want_pre)
             keys = keys_all[idx].contiguous()
@@ -887,8 +957,9 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
     for (name, pname), r in rows.items():
         log(f"time {name} [{pname}]: {r['lanes']} lanes at step "
             f"{r['step']}, kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), {r['mismatches']} differences")
+            f"{r['plain_ms']:.4f} ms (on {r.get('checked', r['lanes'])} "
+            f"lanes), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['mismatches']} differences")
     return rows
 
 
@@ -1035,6 +1106,184 @@ def time_fused(fused: dict, pname: str) -> dict:
     return rows
 
 
+# ------------------------------------------------------ LM serving
+def token_sample_work(rows: int, vocab: int, greedy: bool):
+    """(bytes, operations) of K8 on [rows, vocab] logits: each logit read
+    once, the seed read and the ids written; per token a compare, and when
+    sampling a Threefry, two logs, the uniform's map and the key's
+    multiply-add."""
+    n = float(rows) * vocab
+    nbytes = 4.0 * n + 16.0 + 4.0 * rows
+    per_token = 1 if greedy else 1 + THREEFRY_OPS + 2 * XLA_LOG_OPS + 5
+    return nbytes, n * per_token
+
+
+def lm_phase(dev, reps: int) -> dict:
+    """Phase 1b: serve ``LM_ARCH`` at full width on the card — random
+    weights from ``init_params`` with a seeded generator, ``LM_BATCH``
+    requests of ``LM_PROMPT`` prompt tokens and ``LM_NEW`` new tokens
+    through ``repro_torch.serving.generate``, sampled at
+    ``LM_TEMPERATURE`` twice and greedily once, the K8 launches counted
+    for each run; then K8 against its plain version, bitwise, and timed.
+    Returns the kernel rows keyed by (kernel, label), each with the
+    launches of its mode's main-path run."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.prng import fold_in, key_data
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serving import GenerateConfig, generate
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(LM_SEED),
+                         dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"lm: {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}) initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s: {n_params} parameters "
+        f"(param_count() {cfg.param_count()}), {w_bytes / 2**30:.3f} GiB of "
+        f"weights + {params.head_f32.numel() * 4 / 2**30:.3f} GiB float32 "
+        f"head; device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    if n_params != cfg.param_count():
+        fail(f"lm: {n_params} parameters, param_count() says "
+             f"{cfg.param_count()}")
+    B, S0, new = LM_BATCH, LM_PROMPT, LM_NEW
+    total, steps = S0 + new, S0 + new - 1
+    prompts = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (B, S0), dtype=np.int32)).to(dev)
+    key = key_data(LM_KEY)
+    runs, launches, step_ms = {}, {}, {}
+    for label, gcfg in (
+            ("sampled", GenerateConfig(new, temperature=LM_TEMPERATURE)),
+            ("sampled_again", GenerateConfig(new,
+                                             temperature=LM_TEMPERATURE)),
+            ("greedy", GenerateConfig(new, greedy=True))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompts, gcfg, key=key)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: n for k, n in build.LAUNCHES.items() if n}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"lm [{label}]: {B} requests x ({S0} prompt + {new} new "
+            f"tokens) in {dt:.3f} s: {steps} decode steps, "
+            f"{dt / steps * 1e3:.2f} ms per step, {B * new / dt:.1f} new "
+            f"tokens/s ({B * steps / dt:.1f} decoded tokens/s); peak device "
+            f"memory {peak / 2**30:.3f} GiB; launches {counts}")
+        if tuple(out.shape) != (B, total) or out.dtype != torch.int32:
+            fail(f"lm [{label}]: output {tuple(out.shape)} {out.dtype}, "
+                 f"expected ({B}, {total}) int32")
+        if not torch.equal(out[:, :S0], prompts):
+            fail(f"lm [{label}]: the prompts were not kept")
+        if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            fail(f"lm [{label}]: a token id lies outside [0, "
+                 f"{cfg.vocab_size})")
+        if counts != {"token_sample": steps}:
+            fail(f"lm [{label}]: launches {counts}, expected token_sample "
+                 f"once per decode step ({steps})")
+        runs[label] = out
+        launches[label] = counts["token_sample"]
+        step_ms[label] = dt / steps * 1e3
+    if not torch.equal(runs["sampled"], runs["sampled_again"]):
+        fail("lm: a second sampled run gave other tokens")
+    log(f"lm: the second sampled run equals the first; request 0 sampled "
+        f"{runs['sampled'][0, S0:].tolist()}, greedy "
+        f"{runs['greedy'][0, S0:].tolist()}")
+    # the logits of the sampled run's last decode step, recomputed by
+    # feeding its tokens through decode_step; the last LM_PROFILED steps
+    # under torch.profiler give the card's busy time per step
+    caches = init_cache(cfg, B, total, device=dev)
+    tokens = runs["sampled"].long()
+    for i in range(steps - LM_PROFILED):
+        last, caches = decode_step(params, cfg, tokens[:, i:i + 1], caches, i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps - LM_PROFILED, steps):
+            last, caches = decode_step(params, cfg, tokens[:, i:i + 1],
+                                       caches, i)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / LM_PROFILED
+    n_kern = sum(e.count for e in kernels) / LM_PROFILED
+    warm = step_ms["sampled_again"]
+    if busy > 0:
+        log(f"lm: a decode step runs {n_kern:.0f} device kernels, "
+            f"{busy:.3f} ms busy on the card (torch.profiler, "
+            f"{LM_PROFILED} steps); against the warm run's {warm:.2f} ms "
+            f"per step the card idles {1 - busy / warm:.3f} of it")
+    else:
+        log("lm: torch.profiler saw no device time; the card's busy time "
+            "per decode step is not measured")
+    del caches, params
+    torch.cuda.empty_cache()
+    seed_last = ops.make_seeds(fold_in(key, steps - 1), 1)[0].to(dev)
+    if not torch.equal(ops.token_sample(last, seed_last, LM_TEMPERATURE),
+                       runs["sampled"][:, -1]):
+        fail("lm: K8 on the recomputed last decode step's logits does not "
+             "give the sampled run's last tokens: the recomputation is not "
+             "the served run's (decode_step or its cache differs)")
+    log("lm: the last decode step's logits recomputed; K8 on them gives "
+        "the sampled run's last tokens")
+    gen = torch.Generator(dev).manual_seed(LM_SEED + 1)
+    decode_rows = SHAPES["decode_32k"].global_batch
+    wide = torch.randn((decode_rows, cfg.vocab_size), generator=gen,
+                       device=dev) * 2.0
+    seed = torch.tensor(LM_CHECK_SEED, dtype=torch.int64, device=dev)
+    wrap = torch.tensor((2**32 - 3, LM_CHECK_SEED[1]), dtype=torch.int64,
+                        device=dev)
+    sets = {f"last_step_b{B}": (last, seed_last),
+            f"normal_b{decode_rows}": (wide, seed),
+            "normal_b5": (wide[:5].contiguous(), seed),
+            "normal_b8_wrapping_seed": (wide[:8].contiguous(), wrap)}
+    modes = {"sampled": dict(temperature=LM_TEMPERATURE),
+             "sampled_t1": dict(temperature=1.0),
+             "greedy": dict(greedy=True)}
+    for label, (lg, sd) in sets.items():
+        for mode, kw in modes.items():
+            got = ops.token_sample(lg, sd, **kw)
+            want = ref.token_sample_ref(lg, sd, **kw)
+            if not torch.equal(got, want):
+                fail(f"token_sample [{label}, {mode}]: differs from its plain "
+                     f"version on {int((got != want).sum())} of "
+                     f"{lg.shape[0]} rows")
+    log(f"check token_sample: bitwise equal to its plain version on "
+        f"{list(sets)} x {list(modes)}")
+    rows = {}
+    for label, (lg, sd) in ((f"b{B}", (last, seed_last)),
+                            (f"b{decode_rows}", (wide, seed))):
+        for mode in ("sampled", "greedy"):
+            kw = modes[mode]
+            run = lambda: ops.token_sample(lg, sd, **kw)
+            ms = cuda_ms(run, reps)
+            want, plain_ms = cuda_once(
+                lambda: ref.token_sample_ref(lg, sd, **kw))
+            lib_ms = cuda_ms(lambda: torch.argmax(lg, 1), reps) \
+                if mode == "greedy" else None
+            b_ms, b_by = bound(*token_sample_work(*lg.shape,
+                                                  mode == "greedy"))
+            rows["token_sample", f"{mode}_{label}"] = dict(
+                lanes=int(lg.shape[0]), vocab=int(lg.shape[1]), ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, mismatches=0, launches=launches[mode])
+    for (name, label), r in rows.items():
+        lib = "" if r["library_ms"] is None else \
+            f", torch.argmax {r['library_ms']:.4f} ms"
+        log(f"time {name} [{label}]: [{r['lanes']}, {r['vocab']}] logits, "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
+    return rows
+
+
 # ------------------------------------------------- the standalone ops
 def ops_walkers(row0, degs, nodes, key: int):
     """(row0, degs, seeds) of walkers at ``nodes`` of the aligned stream;
@@ -1101,10 +1350,9 @@ def erjs_block_work(trials):
     return 36.0 * trials.numel() + 4.0 * t, t * (THREEFRY_OPS + 10)
 
 
-def hub_and_random_walkers(nodes, degs):
-    """At most ``OPS_PLAIN_LANES`` walkers: one on each of the
-    ``OPS_HUB_LANES`` largest distinct rows, the rest drawn at random."""
-    import numpy as np
+def on_hub_rows(nodes, degs):
+    """(lanes on the ``OPS_HUB_LANES`` largest distinct rows, each with its
+    rank among the row's lanes): both [n] tensors, ranks 0-based."""
     import torch
 
     by_node = torch.argsort(nodes)
@@ -1113,10 +1361,28 @@ def hub_and_random_walkers(nodes, degs):
     s = nodes[order]
     first = torch.ones_like(s, dtype=torch.bool)
     first[1:] = s[1:] != s[:-1]
-    hubs = order[first][:OPS_HUB_LANES]
-    rng = np.random.default_rng(OPS_SEED)
+    row = torch.cumsum(first.to(torch.int64), 0) - 1
+    pos = torch.arange(s.numel(), device=s.device)
+    start = torch.zeros_like(pos)
+    start[first] = pos[first]
+    start = torch.cummax(start, 0).values
+    on_hub = row < OPS_HUB_LANES
+    return order[on_hub], (pos - start)[on_hub]
+
+
+def hub_and_random_walkers(nodes, degs, lanes: int = OPS_PLAIN_LANES,
+                           seed: int = OPS_SEED, per_row: int = 1):
+    """At most ``lanes`` walkers: up to ``per_row`` on each of the
+    ``OPS_HUB_LANES`` largest distinct rows, the rest drawn at random
+    (``seed``)."""
+    import numpy as np
+    import torch
+
+    hub_lanes, rank = on_hub_rows(nodes, degs)
+    hubs = hub_lanes[rank < per_row]
+    rng = np.random.default_rng(seed)
     rest = torch.from_numpy(rng.choice(
-        nodes.numel(), min(OPS_PLAIN_LANES - hubs.numel(), nodes.numel()),
+        nodes.numel(), min(lanes - hubs.numel(), nodes.numel()),
         replace=False)).to(nodes.device)
     idx = torch.unique(torch.cat([hubs, rest]))
     return idx
@@ -1304,6 +1570,8 @@ SOURCES = {
     **{f"fused_epoch_{kind}": ("src/repro_torch/kernels/csrc/megastep.cu",
                                "src/repro/kernels/megastep_kernel.py:423")
        for kind in FUSED_METHODS},
+    "token_sample": ("src/repro_torch/kernels/csrc/token_sample.cu",
+                     "src/repro/kernels/token_sampler.py:68"),
 }
 # what K4 replaces when it runs a hooked program: the hook branch
 HOOK_BRANCH = "src/repro/kernels/megastep_kernel.py:347"
@@ -1357,6 +1625,9 @@ def main() -> int:
             elif "registers" in ln or "spill" in ln:
                 log(f"ptxas {f.stem.split('-')[0]} {entry}: "
                     f"{ln.split(':', 1)[-1].strip()}")
+
+    # 1b. LM serving at full width
+    lm_rows = lm_phase(torch.device("cuda"), args.reps)
 
     # 2. graph and engines
     t0 = time.perf_counter()
@@ -1457,8 +1728,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None,
             "lanes": r["lanes"], "step": r["step"],
             "mismatches": r["mismatches"],
-            **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms")
-               if k in r}})
+            **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms",
+                                 "checked") if k in r}})
     for (name, label), n in ops_launches.items():
         r = ops_rows[name, label]
         src, replaces = SOURCES[name]
@@ -1469,6 +1740,15 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "lanes": r["lanes"],
             "checked": r["checked"], "mismatches": 0})
+    for (name, label), r in lm_rows.items():
+        src, replaces = SOURCES[name]
+        kernels.append({
+            "name": f"{name}/{label}", "route": "cuda", "source": src,
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "lanes": r["lanes"],
+            "vocab": r["vocab"], "mismatches": 0})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,16 +24,18 @@ from repro_torch.core.types import WalkProgram, wstate_rows
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.kernels.prng import (fold_in, threefry2x32, uniform,
                                       uniform_from_bits)
+from repro_torch.kernels.ref import fma32, xla_exp, xla_log
 
 NEG_INF = float("-inf")
 # entries ([walkers, offsets]) of one ervs_step block
 _BLOCK_ELEMS = 1 << 22
 
 
-def _log_keys(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """ln(key) = ln(u)/w̃ for w̃ > 0, else -inf."""
+def _log_keys(u: torch.Tensor, w: torch.Tensor,
+              log=torch.log) -> torch.Tensor:
+    """ln(key) = ln(u)/w̃ for w̃ > 0, else -inf (``log`` evaluates ln)."""
     safe_w = torch.where(w > 0, w, 1.0)
-    return torch.where(w > 0, torch.log(u) / safe_w, NEG_INF)
+    return torch.where(w > 0, log(u) / safe_w, NEG_INF)
 
 
 def _tile_uniforms(keys: torch.Tensor, t: int, width: int) -> torch.Tensor:
@@ -124,8 +126,14 @@ def jump_lanes(graph: CSRGraph, program: WalkProgram, params, cur, prev,
     [W, lanes] int64) with lanes = min(tile, widest active row).
 
     Tile t draws u0 from ``fold_in(key, 2t)`` and u1 from ``fold_in(key,
-    2t+1)``; every float operation is a separate IEEE operation in the
-    reference's order (the CUDA kernel does the same with ``__f*_rn``).
+    2t+1)``.  The float operations are the reference's as XLA on the CPU
+    compiles them: ``u2 = t_w + u0 * (1 - t_w)`` is one fused multiply-add
+    (``fma32``), and exp and log are XLA's polynomials (``xla_exp``,
+    ``xla_log``); every other operation is a separate IEEE operation in
+    the reference's order.  A-ExpJ magnifies a 1-ulp change (``log(u2)`` of
+    a ``u2`` near 1 moves the next threshold), so on long rows anything
+    else parts from the reference far from near-ties.  The CUDA kernel
+    runs the same operations (``csrc/xla_math.cuh``).
     Tile t is computed only for the walkers whose rows reach it: on the
     others every edge is masked (w̃ = 0), which changes no lane."""
     W = cur.shape[0]
@@ -149,17 +157,17 @@ def jump_lanes(graph: CSRGraph, program: WalkProgram, params, cur, prev,
         th, cw = thresh[rows, :width], cumw[rows, :width]
         is_first = lk == NEG_INF
         u0 = _tile_uniforms(keys[rows], 2 * t, width)
-        init_lk = _log_keys(u0, w)
+        init_lk = _log_keys(u0, w, xla_log)
         crossed = ((cw + w) >= th) & (w > 0) & mask
-        t_w = torch.exp(torch.clamp(w * lk, -80.0, 0.0))
-        u2 = t_w + u0 * (one - t_w)
-        cross_lk = _log_keys(torch.clamp(u2, 1e-38, 1.0), w)
+        t_w = xla_exp(torch.clamp(w * lk, -80.0, 0.0))
+        u2 = fma32(u0, one - t_w, t_w)
+        cross_lk = _log_keys(torch.clamp(u2, 1e-38, 1.0), w, xla_log)
         new_key = torch.where(is_first, init_lk, cross_lk)
         take = (is_first & (w > 0) & mask) | crossed
         u1 = _tile_uniforms(keys[rows], 2 * t + 1, width)
         lk_new = torch.where(take, new_key, lk)
         denom = torch.where(lk_new < 0, lk_new, -1e-30)
-        thresh[rows, :width] = torch.where(take, torch.log(u1) / denom, th)
+        thresh[rows, :width] = torch.where(take, xla_log(u1) / denom, th)
         cumw[rows, :width] = torch.where(take, 0.0,
                                          cw + torch.where(mask, w, 0.0))
         nbr_best[rows, :width] = torch.where(take, ctx.nbr, nb)

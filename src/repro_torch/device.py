@@ -11,8 +11,11 @@ def resolve_device(device="cuda") -> torch.device:
 
     Asking for CUDA where none exists raises: the port never carries on
     silently on the CPU.  Pass ``device="cpu"`` to run the plain PyTorch
-    versions of the kernels."""
+    versions of the kernels; ``"meta"`` builds shapes only (a model's
+    parameter count) and runs nothing."""
     dev = torch.device(device)
+    if dev.type == "meta":
+        return dev
     if dev.type not in DEVICES:
         raise ValueError(f"device {device!r} is not one of {DEVICES}")
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -3,7 +3,7 @@ arrays (this module imports nothing of the reference: the caller passes
 ``np.asarray`` of each field).
 
 Used by the tests to feed the reference and the port the same graph,
-statistics, tables and walker state.
+statistics, tables, walker state and model parameters.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.precomp import PrecompTables
 from repro_torch.core.types import WalkerState, WalkProgram
 from repro_torch.graphs.csr import CSRGraph, NodeStats
+from repro_torch.models import DecoderLM, ModelConfig, segment_plan
 from repro_torch.walks.workloads import make_workload
 
 
@@ -96,3 +97,32 @@ def program_from_params(name: str, params=None, weighted: bool = True
     if not name.endswith("_unweighted"):
         kw["weighted"] = weighted
     return make_workload(name, **kw)
+
+
+@torch.no_grad()
+def params_from_arrays(cfg: ModelConfig, params, device="cuda") -> DecoderLM:
+    """The port's model holding the reference's ``init_params`` pytree,
+    given as the same nested dicts with numpy leaves (bf16 leaves as
+    float32, which is lossless).  Each segment's ``[reps, ...]`` leaves are
+    unstacked into its layers; weights are cast to ``cfg.dtype`` and the
+    float32 head is built."""
+    model = DecoderLM(cfg, device)
+
+    def put(p: torch.Tensor, a) -> None:
+        p.copy_(torch.from_numpy(np.array(a, np.float32)))
+
+    put(model.embed, params["embed"])
+    put(model.final_norm, params["final_norm"])
+    if model.lm_head is not None:
+        put(model.lm_head, params["lm_head"])
+    for (kinds, _), blocks, seg in zip(segment_plan(cfg), model.segments,
+                                       params["segments"]):
+        tree = seg[f"b0_{kinds[0]}"]
+        for r, blk in enumerate(blocks):
+            put(blk.norm1, tree["norm1"][r])
+            put(blk.norm2, tree["norm2"][r])
+            for sub in ("attn", "mlp"):
+                for name, p in getattr(blk, sub).named_parameters():
+                    put(p, tree[sub][name][r])
+    model.build_head()
+    return model

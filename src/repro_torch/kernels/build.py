@@ -26,7 +26,7 @@ from repro_torch.kernels.rules import RuleStruct
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ervs.cu", "erjs.cu", "its.cu", "alias.cu", "megastep.cu",
-           "ervs_block.cu", "erjs_block.cu")
+           "ervs_block.cu", "erjs_block.cu", "token_sample.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -39,7 +39,7 @@ LAUNCHES: Dict[str, int] = {
     "fused_epoch_rejection": 0, "fused_epoch_precomp_its": 0,
     "fused_epoch_precomp_alias": 0, "ervs_block_select": 0,
     "erjs_block_select": 0, "its_search_aligned": 0,
-    "alias_pick_aligned": 0}
+    "alias_pick_aligned": 0, "token_sample": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -125,6 +125,9 @@ _SIGNATURES = {
                     [_P] * 4 + [_I, _L] + [_P] * 4)],
     "erjs_block": [("repro_erjs_block_select",
                     [_P] * 5 + [_I, _L, _I] + [_P] * 3)],
+    "token_sample": [("repro_token_sample_chunks", [_I]),
+                     ("repro_token_sample",
+                      [_P, _P, _I, _I, _F, _I] + [_P] * 4)],
 }
 
 

@@ -5,7 +5,10 @@
 //   JUMP = false: exponential keys ln(u)/w over the row, first offset
 //                 holding the maximum key wins;
 //   JUMP = true:  lane-strided A-ExpJ (lane l owns offsets l, l+tile, ...),
-//                 first lane holding the maximum key wins.
+//                 first lane holding the maximum key wins; its exp, logs
+//                 and the multiply-add of u2 are XLA's (xla_math.cuh),
+//                 because A-ExpJ turns a 1-ulp change into a different
+//                 crossing on long rows.
 // The reference's logical tiling feeds the RNG: offset j is lane j % tile
 // of tile t = j / tile, and its uniform is that lane of
 // uniform(fold_in(key, t)) (u0/u1 from fold_in(key, 2t) / (2t+1) for jump).
@@ -21,6 +24,7 @@
 
 #include "threefry.cuh"
 #include "weights.cuh"
+#include "xla_math.cuh"
 
 namespace repro {
 
@@ -46,6 +50,12 @@ __device__ __forceinline__ Best warp_best(Best b) {
 
 __device__ __forceinline__ float log_key(float u, float w) {
   return w > 0.0f ? __fdiv_rn(logf(u), w) : -CUDART_INF_F;
+}
+
+// The jump instance's key: XLA's log, as its plain version and the
+// reference compute it (see xla_math.cuh).
+__device__ __forceinline__ float xla_log_key(float u, float w) {
+  return w > 0.0f ? __fdiv_rn(xla_log(u), w) : -CUDART_INF_F;
 }
 
 // Next node of walker `wc` (per-step key (k0, k1)), or -1 when no
@@ -90,17 +100,18 @@ __device__ int64_t ervs_warp_select(const Graph& g, const Rule& rule,
         const int64_t nbr = g.indices[start + j];
         const float w = edge_weight(g, rule, wc, start + j, nbr);
         const bool is_first = lk_max == -CUDART_INF_F;
-        const float init_lk = log_key(u0, w);
+        const float init_lk = xla_log_key(u0, w);
         const bool crossed = (__fadd_rn(cumw, w) >= thresh) && (w > 0.0f);
-        const float t_w = expf(fminf(fmaxf(__fmul_rn(w, lk_max), -80.0f), 0.0f));
-        const float u2 = __fadd_rn(t_w, __fmul_rn(u0, __fsub_rn(1.0f, t_w)));
-        const float cross_lk = log_key(fminf(fmaxf(u2, eps38), 1.0f), w);
+        const float t_w =
+            xla_exp(fminf(fmaxf(__fmul_rn(w, lk_max), -80.0f), 0.0f));
+        const float u2 = fma32(u0, __fsub_rn(1.0f, t_w), t_w);
+        const float cross_lk = xla_log_key(fminf(fmaxf(u2, eps38), 1.0f), w);
         const float new_key = is_first ? init_lk : cross_lk;
         const bool take = (is_first && w > 0.0f) || crossed;
         const float lk_new = take ? new_key : lk_max;
         const float denom = lk_new < 0.0f ? lk_new : tiny;
         if (take) {
-          thresh = __fdiv_rn(logf(u1), denom);
+          thresh = __fdiv_rn(xla_log(u1), denom);
           cumw = 0.0f;
           nbr_best = nbr;
         } else {

@@ -12,7 +12,10 @@ do, as the reference's benchmarks and kernel tests drive them:
   rejection reading one stored weight per trial;
 * :func:`its_search` / :func:`alias_pick` — the aligned entries of K3
   (``csrc/its.cu``) and K5 (``csrc/alias.cu``), the same device code at
-  flat starts ``row0 * 128``.
+  flat starts ``row0 * 128``;
+* :func:`token_sample` — kernel K8 (``csrc/token_sample.cu``, wrapper
+  ``token_sampler.py``), Gumbel-max sampling over LM logits, which needs
+  no layout.
 
 Each op runs its plain version (``kernels/ref.py``) on CPU tensors; on
 CUDA tensors it launches its kernel (building it on first use) or raises.
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, token_sampler
 from repro_torch.kernels.prng import fold_in
 from repro_torch.kernels.ref import LANES, SUBLANES
 
@@ -228,3 +231,10 @@ def alias_pick(prob2d, alias2d, row0, degs, totals, seeds):
     build.check(err, "alias_pick_aligned")
     build.LAUNCHES["alias_pick_aligned"] += 1
     return out
+
+
+def token_sample(logits, seed, temperature: float = 1.0,
+                 greedy: bool = False):
+    """Gumbel-max categorical token sampling (K8; see token_sampler.py).
+    Returns token ids [B] int32."""
+    return token_sampler.token_sample(logits, seed, temperature, greedy)

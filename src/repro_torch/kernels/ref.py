@@ -1,12 +1,13 @@
-"""Plain PyTorch versions of the standalone kernels on the tile-aligned
-layout (port of ``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the standalone kernels (port of
+``repro/kernels/ref.py``).
 
 Each ``*_ref`` consumes the same Threefry counters and performs the same
 float32 operations, one IEEE operation at a time, as its kernel:
 :func:`ervs_select_ref` is the plain version of K6 (``csrc/ervs_block.cu``),
 :func:`erjs_select_ref` of K7 (``csrc/erjs_block.cu``),
 :func:`its_search_ref` and :func:`alias_pick_ref` of K3's and K5's aligned
-entries.  :func:`ervs_select_semantic` is the textbook algorithm with a
+entries, :func:`token_sample_ref` of K8 (``csrc/token_sample.cu``).
+:func:`ervs_select_semantic` is the textbook algorithm with a
 ``torch.Generator``, the distribution oracle of chi-square tests.
 
 Layout: ``ops.align_rows`` — each node's row starts on a 128-lane boundary
@@ -34,18 +35,21 @@ the polynomials' steps and the reference's ``t_w + u1 * (1 - t_w)`` alike.
 A 1-ulp difference there is not harmless: ``log(uu)`` of a ``uu`` near 1
 turns it into a relative change of ~1e-4 in the next threshold, which
 moves later crossings.  So :func:`xla_exp`, :func:`xla_log` and
-:func:`fma32` reproduce those operations (a fused multiply-add is a
-float64 multiply, which is exact, a float64 add and one rounding to
-float32; it parts from a true FMA only when the float64 sum lands on a
-float32 rounding tie), and K6 runs the same operations on the card.
+:func:`fma32` reproduce those operations, and K1's jump instance, K6 and
+K8 run the same operations on the card (``csrc/xla_math.cuh``, where
+``fma32`` is the hardware's ``fmaf``).  :func:`fma32` is exact: a float64
+multiply of float32 values, which is exact, a float64 add rounded to odd,
+then one rounding to float32 — the float32 value a fused multiply-add
+gives, ties included.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.prng import uniform_01, uniform_pair_01
+from repro_torch.kernels.prng import MASK32, uniform_01, uniform_pair_01
 
 LANES = 128
 SUBLANES = 8
@@ -54,6 +58,7 @@ ERVS_SALT = 0x9E3779B9
 ERJS_SALT = 0x00C0FFEE
 ITS_SALT = 0x175CDF
 ALIAS_SALT = 0xA11A5
+TOKEN_SALT = 0x700C0DE
 # weights per gathered [n, width] block of the plain eRVS version
 _CHUNK_ELEMS = 1 << 25
 
@@ -76,10 +81,27 @@ _LOG_P = (0.07037683576345444, -0.11514610052108765, -0.12420140951871872,
 
 
 def fma32(a, b, c) -> torch.Tensor:
-    """float32 ``a * b + c`` with one rounding (see the module docstring);
-    ``a``, ``b``, ``c`` are float32 tensors or Python floats."""
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add rounds
+    it; ``a``, ``b``, ``c`` are float32 tensors or Python floats holding
+    float32 values, at least one of them a tensor.
+
+    The product is exact in float64.  The float64 sum is rounded to odd:
+    where it was inexact and its last bit is even, it moves one float64
+    ulp towards the exact sum (the error comes from Knuth's TwoSum).  A
+    float64 has more than two bits beyond a float32's, so rounding that
+    to float32 gives the correctly rounded result, ties included; the
+    plain float64 sum would round twice and part from an FMA where it
+    lands on a float32 tie."""
     d = lambda x: x.to(torch.float64) if isinstance(x, torch.Tensor) else x
-    return (d(a) * d(b) + d(c)).to(torch.float32)
+    p, c = d(a) * d(b), d(c)
+    s = p + c
+    cc = s - p
+    err = (p - (s - cc)) + (c - cc)
+    bits = s.view(torch.int64)
+    fix = (err != 0) & (bits & 1 == 0) & torch.isfinite(s)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    s = torch.where(fix, (bits + step).view(torch.float64), s)
+    return s.to(torch.float32)
 
 
 def xla_exp(x: torch.Tensor) -> torch.Tensor:
@@ -385,3 +407,32 @@ def alias_pick_ref(prob2d: torch.Tensor, alias2d: torch.Tensor,
     pos = (row0.to(torch.int64) * LANES + col).clamp(0, flat_p.numel() - 1)
     sel = torch.where(u2 < flat_p[pos], col, flat_a[pos].to(torch.int64))
     return torch.where((deg > 0) & (totals > 0), sel, -1).to(torch.int32)
+
+
+# --------------------------------------------------------- token sampler
+def token_sample_ref(logits: torch.Tensor, seed: torch.Tensor,
+                     temperature: float = 1.0,
+                     greedy: bool = False) -> torch.Tensor:
+    """Gumbel-max categorical sampling over the vocab: the plain version
+    of K8.  logits [B, V] float32, seed [2] int64 holding uint32.  Returns
+    token ids [B] int32: the first index of the largest key per row.
+
+    Key of token v in row b: ``logit * (1/T) + g`` with ``g = -ln(-ln
+    u)``, ``u = uniform_01(seed0 + b mod 2^32, seed1, v, TOKEN_SALT)``, as
+    XLA on the CPU compiles the reference: the multiply and the add are
+    one fused multiply-add (:func:`fma32`), the logs are :func:`xla_log`,
+    and ``1/T`` is ``float32(1.0 / T)`` rounded from the double.  Greedy
+    takes the logits as the keys.
+    """
+    if greedy:
+        return torch.argmax(logits, dim=1).to(torch.int32)
+    B, V = logits.shape
+    dev = logits.device
+    row = torch.arange(B, dtype=torch.int64, device=dev)
+    ctr = torch.arange(V, dtype=torch.int64, device=dev)
+    k0 = ((seed[0] + row) & MASK32)[:, None]
+    u = uniform_01(k0, seed[1], ctr[None, :], TOKEN_SALT)
+    g = -xla_log(-xla_log(u))
+    inv_t = float(np.float32(1.0 / temperature))
+    keys = fma32(logits, inv_t, g)
+    return torch.argmax(keys, dim=1).to(torch.int32)

@@ -169,6 +169,45 @@ def test_xla_log_bitwise(lo, hi):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+def _round_f32(x):
+    """The float32 nearest a Fraction, ties to the even mantissa."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf))]
+    dist = [abs(Fraction(float(c)) - x) for c in cands]
+    best = min(dist)
+    near = [c for c, d in zip(cands, dist) if d == best]
+    return near[0] if len(near) == 1 else next(
+        c for c in near if not c.view(np.int32) & 1)
+
+
+def test_fma32_is_a_correctly_rounded_fma():
+    """``fma32`` equals the exactly rounded ``a * b + c`` — what XLA's
+    contracted multiply-add and the card's ``fmaf`` give — on random
+    inputs and where the float64 sum lands on a float32 tie."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(9)
+    n = 3000
+    a, b, c = (rng.standard_normal(n) * np.exp2(rng.integers(-30, 30, n))
+               for _ in range(3))
+    a, b, c = (x.astype(np.float32) for x in (a, b, c))
+    one = np.float32(1.0)
+    # exact sum 1 + 2^-24 + 2^-70: its float64 rounding is the float32 tie
+    # 1 + 2^-24, which rounds to 1; the FMA rounds up to 1 + 2^-23
+    a[0], b[0], c[0] = one + np.float32(2.0 ** -23), one - np.float32(
+        2.0 ** -24), np.float32(2.0 ** -47 * (1 + 2.0 ** -23))
+    a[1], b[1], c[1] = -a[0], b[0], -c[0]
+    got = ref.fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    want = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y))
+                                + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    assert want[0] == one + np.float32(2.0 ** -23) and want[1] == -want[0]
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 # ------------------------------------------------------------------ eRVS
 @pytest.mark.parametrize("dist", ["uniform", "pareto", "zeros"])
 def test_ervs_plain_matches_reference(dist):
