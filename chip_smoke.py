@@ -19,9 +19,12 @@ Phases (any failure exits non-zero and prints no result line):
              sampled run must equal the first.  Then K8 against its plain
              version, bitwise, at T = 0.8, T = 1.0 and greedy, on the last
              decode step's logits [8, V], seeded normal logits [128, V]
-             (decode_32k's batch), [5, V] and a ``seed0`` that wraps mod
+             (decode_32k's batch), the same 4 B past 16-byte alignment
+             (K8's scalar loads), [5, V] and a ``seed0`` that wraps mod
              2^32; timed at [8, V] and [128, V] (greedy beside
-             ``torch.argmax``).
+             ``torch.argmax``), with CUDA events around the Python call
+             and, device-only, with ``torch.profiler``; greedy at [128, V]
+             also with the 16-byte loads and the scalar ones, in turns.
 2. graph   — ``power_law_graph`` at soc-LiveJournal1 scale (4,847,571
              nodes, average degree 14, uniform weights, 5 uniform edge
              labels, seed 0); one adaptive engine per registry program
@@ -90,9 +93,14 @@ Phases (any failure exits non-zero and prints no result line):
              phase 3 (2ndpr's K1 jump lanes: on 4,096 of them, one on each
              of the 64 largest distinct rows and the rest drawn at random,
              ``JUMP_PLAIN_SUBSET``; the plain scan of all of them took
-             223 s).  A kernel that gets no lane at that step is timed at
-             the first later step that gives it lanes (its row's
-             ``step``); none at all fails.  K4: one
+             223 s).  Before the timing, K1 jump is held bitwise against
+             its plain version at tiles 2, 64 and 1,024 (``JUMP_TILES``)
+             under node2vec, 2ndpr and visited_avoiding, on 2,048 walkers
+             3 steps in (at a tile, those whose lanes hold at most 256
+             items), some with no previous node and some whose previous
+             node has the largest row.  A kernel that gets no lane at
+             that step is timed at the first later step that gives it
+             lanes (its row's ``step``); none at all fails.  K4: one
              timed launch of 16 steps per regime from the state after 8
              steps (deepwalk) or 4 steps (ppr_nibble, whose lanes are
              still alive there), held against its plain version on the
@@ -123,6 +131,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 LJ_NODES = 4_847_571  # soc-LiveJournal1
@@ -216,6 +225,26 @@ K1_RULE = {False: "all near-ties", True: "none (bitwise)"}
 JUMP_PLAIN_SUBSET = {"2ndpr": 4096}
 JUMP_PLAIN_PER_ROW = 16
 JUMP_PLAIN_SEED = 15
+# phase 5: K1 jump against its plain version at these tiles (one thread
+# holds 1, 2 and 32 lanes; 1,024 is the largest one-pass tile) under the
+# rules with a dist(v', u) test, on JUMP_TILE_WALKERS walkers 3 steps in
+# (rows of at most 4,096), every tenth with no previous node and every
+# tenth one step later with the graph's largest row as its previous node,
+# so the kernel's cursor gallops through a long row.  At a tile, only the
+# walkers whose lanes hold at most JUMP_TILE_ITEMS items are checked: the
+# plain version takes a step of torch operations per tile of the longest
+# row (~26 ms each on the card), and at tile 2 rows of 4,096 took ~55 s a
+# program
+JUMP_TILES = (2, 64, 1024)
+JUMP_TILE_PROGRAMS = ("node2vec", "2ndpr", "visited_avoiding")
+JUMP_TILE_WALKERS = 2048
+JUMP_TILE_ITEMS = 256
+# operations of one edge of the jump scan that takes nothing: the rule's
+# weight (at most ~6 float operations and the dist test's compare), the
+# running sum and the crossing test
+JUMP_EDGE_OPS = 12
+# K8 and torch.argmax: timed runs per measurement (microseconds each)
+LM_TIMING_REPS = 50
 
 
 def fail(msg: str) -> None:
@@ -267,6 +296,26 @@ def cuda_once(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def device_ms(fn, reps: int):
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
+    warm-up run: the time of the kernels it launched on the card, from
+    ``torch.profiler`` (device activity only), without the host's gaps
+    between them; None when the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / reps if total > 0 else None
 
 
 def bound(nbytes: float, ops: float):
@@ -759,6 +808,53 @@ def fused_main_path(fused_eng, staged_eng, pname: str, steps: int):
     return counts["fused"][name], counts["staged"]
 
 
+def check_jump_tiles(adaptive: dict, seed: int) -> None:
+    """Phase 5: K1 jump against its plain version, bitwise, at each of
+    ``JUMP_TILES`` under each rule of ``JUMP_TILE_PROGRAMS`` (the rules
+    that test dist(v', u)), on walkers 3 steps in, some with no previous
+    node and some whose previous node has the graph's largest row; at a
+    tile, on the walkers whose rows give a lane at most
+    ``JUMP_TILE_ITEMS`` items."""
+    import torch
+    from repro_torch.core import ervs as ervs_mod
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.core.types import wstate_rows
+    from repro_torch.kernels.ervs import ervs_select
+
+    for name in JUMP_TILE_PROGRAMS:
+        eng = adaptive[name]
+        g, prog, p = eng.graph, eng.workload, eng.sampler_ctx.params
+        cur, prev, step, keys, ws, _ = program_walkers(eng,
+                                                       JUMP_TILE_WALKERS,
+                                                       seed)
+        prev = prev.clone()
+        prev[::10] = -1
+        prev[1::10] = int(torch.argmax(g.degrees()))
+        deg = degrees_of(g, cur)
+        for tile in JUMP_TILES:
+            t0 = time.perf_counter()
+            sel = (deg <= JUMP_TILE_ITEMS * tile).nonzero().squeeze(1)
+            c, pv, st, k = (x[sel].contiguous()
+                            for x in (cur, prev, step, keys))
+            w = wstate_rows(ws, sel)
+            got = ervs_select(g, prog, p, c, pv, st, k, tile=tile,
+                              jump=True, wstate=w)
+            want = ervs_mod.ervs_jump_step(g, prog, p, c, pv, st, k,
+                                           tile=tile, wstate=w)
+            n_bad = int((got != want).sum())
+            log(f"check ervs_jump_select [{name}] at tile {tile}: "
+                f"{sel.numel()} walkers (rows up to "
+                f"{int(deg[sel].max()) if sel.numel() else 0}, "
+                f"{int((pv < 0).sum())} with no previous node, "
+                f"{int((degrees_of(g, pv) > 4096).sum())} whose previous "
+                f"row is longer than 4,096), {n_bad} differ from the plain "
+                f"version ({time.perf_counter() - t0:.1f} s)")
+            if n_bad:
+                fail(f"ervs_jump_select [{name}] at tile {tile}: {n_bad} "
+                     f"walkers differ from the plain version (must be "
+                     f"bitwise)")
+
+
 def mid_walk_state(eng, steps_before: int, num_steps: int = WALK_STEPS):
     """Slot state of all V queries of a ``num_steps`` walk after
     ``steps_before`` steps."""
@@ -773,6 +869,88 @@ def mid_walk_state(eng, steps_before: int, num_steps: int = WALK_STEPS):
     sched.admit(np.arange(V), np.arange(V))
     sched.run_epoch()
     return sched.state
+
+
+def lanes_of(state, mask):
+    """(cur, prev, step, lane indices, program state) of ``state``'s lanes
+    in ``mask``."""
+    from repro_torch.core.types import wstate_rows
+
+    idx = mask.nonzero().squeeze(1)
+    return (state.cur[idx].contiguous(), state.prev[idx].contiguous(),
+            state.step[idx].contiguous(), idx, wstate_rows(state.wstate, idx))
+
+
+def ring_bytes(ws, pname: str) -> float:
+    """Bytes a lane reads beside its cur, prev, step and key: the
+    visited-avoiding ring, once (the other rules read no state)."""
+    if pname != "visited_avoiding":
+        return 0.0
+    return float(ws[0][0].numel() * ws[0].element_size())
+
+
+def main_path_split(eng, step_at: int) -> SimpleNamespace:
+    """How ``eng``'s sampler splits the live lanes of its main-path state
+    after ``step_at`` steps: ``state``, the lanes' ``keys``, the
+    partition ``part``; ``rjs``, the eRJS lanes (``lanes`` as
+    ``lanes_of`` gives them, their ``keys`` and ``bound``, ``run`` calling
+    K2 on them and ``got``, its result) or None when there are none; and
+    the reservoir's plain and jump masks ``lo`` and ``hi``, which include
+    eRJS's fallbacks."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.kernels.erjs import erjs_select
+
+    g, ctx, cfg = eng.graph, eng.sampler_ctx, eng.config
+    state = mid_walk_state(eng, step_at)
+    keys = state.stream_keys()
+    live = (state.alive & (state.step < WALK_STEPS)
+            & (degrees_of(g, state.cur) > 0))
+    part = eng.sampler.partition(ctx, state, live, keys)
+    fb = torch.zeros_like(live)
+    rjs = None
+    if bool(part.want_rjs.any()):
+        lanes = lanes_of(state, part.want_rjs)
+        cur, prev, step, idx, ws = lanes
+        k, bnd = keys[idx].contiguous(), part.est.bound_max[idx].contiguous()
+        run = lambda: erjs_select(g, eng.workload, ctx.params, cur, prev,
+                                  step, k, bnd, trials=cfg.rjs_trials,
+                                  rounds=cfg.rjs_max_rounds, wstate=ws)
+        got = run()
+        fb[idx] = got[1]
+        rjs = SimpleNamespace(lanes=lanes, keys=k, bound=bnd, run=run,
+                              got=got)
+    res = live & ~part.want_pre & (~part.want_rjs | fb)
+    lo, hi = eng.sampler.reservoir_split(ctx, part, res)
+    return SimpleNamespace(state=state, keys=keys, part=part, rjs=rjs,
+                           lo=lo, hi=hi)
+
+
+def jump_work(g, prev, d, got, pname: str, weighted: bool,
+              ring: float):
+    """(bytes, operations) the jump reservoir's function needs on these
+    walkers, whatever runs it: each walker's cur, prev, step, key and
+    result (64 B) and its ``ring`` bytes; each scanned edge's neighbour
+    once, its h only when the rule is ``weighted``, and MetaPath's label;
+    for the second-order rules the previous row once per walker, or one
+    entry of it per edge where the row is longer; ``JUMP_EDGE_OPS`` per
+    edge, and for each walker that returns a neighbour the one take it
+    needs at least: u0 and u1 (two Threefry), the key's and the
+    threshold's logs and the tile's two keys (two Threefry).  u0 and u1
+    of an edge no lane takes change nothing, and a search of the previous
+    row per edge is one design's work, so neither is counted."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+
+    per_edge = (4.0 + (4.0 if weighted else 0.0)
+                + (4.0 if pname.startswith("metapath") else 0.0))
+    prev_row = (4.0 * torch.minimum(degrees_of(g, prev).to(torch.float64), d)
+                if pname in SECOND_ORDER else 0.0)
+    nbytes = float((64.0 + ring + d * per_edge + prev_row).sum())
+    walkers_taking = float((got >= 0).sum())
+    ops = (float(d.sum()) * JUMP_EDGE_OPS
+           + walkers_taking * (4 * THREEFRY_OPS + 2 * XLA_LOG_OPS + 10))
+    return nbytes, ops
 
 
 def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
@@ -790,17 +968,10 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
     from repro_torch.core.ctxutil import degrees_of
     from repro_torch.core.precomp import its_offsets
     from repro_torch.core.types import wstate_rows
-    from repro_torch.kernels.erjs import erjs_select
-    from repro_torch.kernels.ervs import ervs_select
+    from repro_torch.kernels.ervs import ervs_select, kernel_rule
     from repro_torch.kernels.its import its_search
 
     rows = {}
-
-    def lanes_of(state, mask):
-        idx = mask.nonzero().squeeze(1)
-        return (state.cur[idx].contiguous(), state.prev[idx].contiguous(),
-                state.step[idx].contiguous(), idx,
-                wstate_rows(state.wstate, idx))
 
     def edge_bytes(g, prev, pname):
         """Bytes one scanned or proposed edge reads: neighbour and h, the
@@ -811,37 +982,19 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
             return b + 4.0 * probes(degrees_of(g, prev))
         return b
 
-    def lane_bytes(ws, pname):
-        """Bytes a lane reads beside its cur, prev, step and key: the
-        visited-avoiding ring, once (the other rules read no state)."""
-        if pname != "visited_avoiding":
-            return 0.0
-        return float(ws[0][0].numel() * ws[0].element_size())
-
     def time_at(pname, eng, step_at: int, names) -> None:
         """Time the kernels in ``names`` on the lanes of ``pname``'s
         main-path state after ``step_at`` steps (those with lanes)."""
         g, cfg = eng.graph, eng.config
-        state = mid_walk_state(eng, step_at)
-        ctx = eng.sampler_ctx
-        keys_all = state.stream_keys()
-        deg = degrees_of(g, state.cur)
-        live = state.alive & (state.step < WALK_STEPS) & (deg > 0)
-        part = eng.sampler.partition(ctx, state, live, keys_all)
-        params = ctx.params
+        split = main_path_split(eng, step_at)
+        state, keys_all, part = split.state, split.keys, split.part
+        params = eng.sampler_ctx.params
         prog = eng.workload
-        fb = torch.zeros_like(live)
-        if bool(part.want_rjs.any()):
-            cur, prev, step, idx, ws = lanes_of(state, part.want_rjs)
-            keys, bnd = keys_all[idx].contiguous(), \
-                part.est.bound_max[idx].contiguous()
-            run = lambda: erjs_select(g, prog, params, cur, prev, step, keys,
-                                      bnd, trials=cfg.rjs_trials,
-                                      rounds=cfg.rjs_max_rounds, wstate=ws)
-            got = run()
-            fb[idx] = got[1]  # the reservoir lanes include the fallbacks
-        if bool(part.want_rjs.any()) and "erjs_select" in names:
-            ms = cuda_ms(run, reps)
+        if split.rjs is not None and "erjs_select" in names:
+            rjs = split.rjs
+            cur, prev, step, idx, ws = rjs.lanes
+            keys, bnd, got = rjs.keys, rjs.bound, rjs.got
+            ms = cuda_ms(rjs.run, reps)
             want, plain_ms = cuda_once(lambda: erjs_mod.erjs_step(
                 g, prog, params, cur, prev, step, keys, bnd, cfg.rjs_trials,
                 cfg.rjs_max_rounds, wstate=ws))
@@ -851,7 +1004,7 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                          f"{what} differs from erjs_step on "
                          f"{int((x != y).sum())} of {idx.numel()} lanes")
             trials = got[2].to(torch.float64)
-            nbytes = float((73.0 + lane_bytes(ws, pname)
+            nbytes = float((73.0 + ring_bytes(ws, pname)
                             + trials * edge_bytes(g, prev, pname)).sum())
             ops = float(trials.sum()) * (4 * THREEFRY_OPS + 30)
             b_ms, b_by = bound(nbytes, ops)
@@ -859,10 +1012,7 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 plain_ms=plain_ms, max_abs_err=0, mismatches=0,
                 bound_ms=b_ms, bound_by=b_by)
-        rest = live & ~part.want_pre
-        res_active = rest & (~part.want_rjs | fb)
-        lo, hi = eng.sampler.reservoir_split(ctx, part, res_active)
-        for jump, mask in ((False, lo), (True, hi)):
+        for jump, mask in ((False, split.lo), (True, split.hi)):
             name = "ervs_jump_select" if jump else "ervs_select"
             if name not in names or not bool(mask.any()):
                 continue
@@ -895,10 +1045,16 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                 fail(f"{name} [{pname}] at main-path shapes: {unexplained} "
                      f"differences from the plain version break the rule: "
                      f"{K1_RULE[jump]}")
-            nbytes = float((64.0 + lane_bytes(ws, pname)
-                            + d * edge_bytes(g, prev, pname)).sum())
-            per_edge = (4 * THREEFRY_OPS + 80) if jump else THREEFRY_OPS + 40
-            b_ms, b_by = bound(nbytes, float(d.sum()) * per_edge)
+            if jump:
+                b_ms, b_by = bound(*jump_work(
+                    g, prev, d, got, pname,
+                    kernel_rule(prog, params).weighted,
+                    ring_bytes(ws, pname)))
+            else:
+                nbytes = float((64.0 + ring_bytes(ws, pname)
+                                + d * edge_bytes(g, prev, pname)).sum())
+                b_ms, b_by = bound(nbytes,
+                                   float(d.sum()) * (THREEFRY_OPS + 40))
             rows[name, pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 plain_ms=plain_ms,
@@ -939,7 +1095,7 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 plain_ms=plain_ms, max_abs_err=0, mismatches=0,
                 bound_ms=b_ms, bound_by=b_by)
-        del state
+        del state, split
 
     for pname, eng in engines.items():
         step_at = MID_STEP[pname]
@@ -1124,7 +1280,9 @@ def lm_phase(dev, reps: int) -> dict:
     requests of ``LM_PROMPT`` prompt tokens and ``LM_NEW`` new tokens
     through ``repro_torch.serving.generate``, sampled at
     ``LM_TEMPERATURE`` twice and greedily once, the K8 launches counted
-    for each run; then K8 against its plain version, bitwise, and timed.
+    for each run; then K8 against its plain version, bitwise, and timed
+    over ``reps`` runs beside ``torch.argmax``: host-inclusive (CUDA events
+    around the Python call) and device-only (``torch.profiler``).
     Returns the kernel rows keyed by (kernel, label), each with the
     launches of its mode's main-path run."""
     import numpy as np
@@ -1241,8 +1399,13 @@ def lm_phase(dev, reps: int) -> dict:
     seed = torch.tensor(LM_CHECK_SEED, dtype=torch.int64, device=dev)
     wrap = torch.tensor((2**32 - 3, LM_CHECK_SEED[1]), dtype=torch.int64,
                         device=dev)
+    # the same logits 4 B past 16-byte alignment: K8 reads them with
+    # scalar loads, the aligned ones with 16-byte loads
+    shifted = torch.empty(wide.numel() + 1, device=dev)[1:].view(wide.shape)
+    shifted.copy_(wide)
     sets = {f"last_step_b{B}": (last, seed_last),
             f"normal_b{decode_rows}": (wide, seed),
+            f"normal_b{decode_rows}_unaligned": (shifted, seed),
             "normal_b5": (wide[:5].contiguous(), seed),
             "normal_b8_wrapping_seed": (wide[:8].contiguous(), wrap)}
     modes = {"sampled": dict(temperature=LM_TEMPERATURE),
@@ -1265,22 +1428,40 @@ def lm_phase(dev, reps: int) -> dict:
             kw = modes[mode]
             run = lambda: ops.token_sample(lg, sd, **kw)
             ms = cuda_ms(run, reps)
+            dev_ms = device_ms(run, reps)
             want, plain_ms = cuda_once(
                 lambda: ref.token_sample_ref(lg, sd, **kw))
-            lib_ms = cuda_ms(lambda: torch.argmax(lg, 1), reps) \
-                if mode == "greedy" else None
+            lib_ms = lib_dev_ms = None
+            if mode == "greedy":
+                lib = lambda: torch.argmax(lg, 1)
+                lib_ms = cuda_ms(lib, reps)
+                lib_dev_ms = device_ms(lib, reps)
             b_ms, b_by = bound(*token_sample_work(*lg.shape,
                                                   mode == "greedy"))
             rows["token_sample", f"{mode}_{label}"] = dict(
                 lanes=int(lg.shape[0]), vocab=int(lg.shape[1]), ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, mismatches=0, launches=launches[mode])
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
+                mismatches=0, launches=launches[mode])
+    shown = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    # 16-byte against scalar loads: greedy at [decode_rows, V], in turns
+    times = {"16-byte": [], "scalar": []}
+    for loads in ("16-byte", "scalar", "scalar", "16-byte"):
+        lg = wide if loads == "16-byte" else shifted
+        run = lambda: ops.token_sample(lg, seed, greedy=True)
+        times[loads].append(f"{cuda_ms(run, reps):.4f} ms (device "
+                            f"{shown(device_ms(run, reps))})")
+    log(f"time token_sample [greedy_b{decode_rows}]: 16-byte loads "
+        f"{' / '.join(times['16-byte'])}, scalar loads (rows 4 B past "
+        f"16-byte alignment) {' / '.join(times['scalar'])}")
     for (name, label), r in rows.items():
         lib = "" if r["library_ms"] is None else \
-            f", torch.argmax {r['library_ms']:.4f} ms"
+            (f", torch.argmax {r['library_ms']:.4f} ms (device "
+             f"{shown(r['library_device_ms'])})")
         log(f"time {name} [{label}]: [{r['lanes']}, {r['vocab']}] logits, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){lib}")
+            f"kernel {r['ms']:.4f} ms (device {shown(r['device_ms'])}), "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}){lib}")
     return rows
 
 
@@ -1627,7 +1808,7 @@ def main() -> int:
                     f"{ln.split(':', 1)[-1].strip()}")
 
     # 1b. LM serving at full width
-    lm_rows = lm_phase(torch.device("cuda"), args.reps)
+    lm_rows = lm_phase(torch.device("cuda"), LM_TIMING_REPS)
 
     # 2. graph and engines
     t0 = time.perf_counter()
@@ -1706,7 +1887,8 @@ def main() -> int:
                 launches["alias_pick", pname] = staged_counts["alias_pick"]
             del staged
 
-    # 5. kernel times at main-path shapes
+    # 5. K1 jump across tiles, then kernel times at main-path shapes
+    check_jump_tiles(adaptive, seed=16)
     rows = time_kernels(adaptive, launched, args.reps)
     for pname in FUSED_PROGRAMS:
         rows.update(time_fused(fused[pname], pname))
@@ -1747,8 +1929,9 @@ def main() -> int:
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": 0, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "lanes": r["lanes"],
-            "vocab": r["vocab"], "mismatches": 0})
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            "lanes": r["lanes"], "vocab": r["vocab"], "mismatches": 0})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

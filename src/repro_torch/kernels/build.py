@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 from repro_torch.kernels.rules import RuleStruct
 
@@ -42,6 +42,9 @@ LAUNCHES: Dict[str, int] = {
     "alias_pick_aligned": 0, "token_sample": 0}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+#: kernels' scratch tensors, by (name, device index, raw stream)
+SCRATCH: Dict[Tuple[str, Optional[int], int], "torch.Tensor"] = {}
 
 
 def reset_launches() -> None:
@@ -111,7 +114,7 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _R = ctypes.POINTER(RuleStruct)
 _SIGNATURES = {
     "ervs": [("repro_ervs_select",
-              [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P])],
+              [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P, _P])],
     "erjs": [("repro_erjs_select",
               [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 4)],
     "its": [("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
@@ -125,9 +128,8 @@ _SIGNATURES = {
                     [_P] * 4 + [_I, _L] + [_P] * 4)],
     "erjs_block": [("repro_erjs_block_select",
                     [_P] * 5 + [_I, _L, _I] + [_P] * 3)],
-    "token_sample": [("repro_token_sample_chunks", [_I]),
-                     ("repro_token_sample",
-                      [_P, _P, _I, _I, _F, _I] + [_P] * 4)],
+    "token_sample": [("repro_token_sample",
+                      [_P, _P, _I, _I, _I, _F, _I] + [_P] * 5)],
 }
 
 
@@ -144,6 +146,21 @@ def library(stem: str) -> ctypes.CDLL:
     if stem not in _LIBS:
         build_all()
     return _LIBS[stem]
+
+
+def scratch(name: str, device, stream: int, numel: int, dtype):
+    """Scratch tensor ``name`` of a kernel on (``device``, ``stream``), at
+    least ``numel`` elements: zeroed when allocated, kept across launches,
+    grown on demand and never shrunk.  Launches on one stream run in order,
+    so they share it; a kernel that needs it zero at every launch leaves it
+    zero or clears it itself."""
+    import torch
+
+    key = (name, device.index, stream)
+    t = SCRATCH.get(key)
+    if t is None or t.numel() < numel:
+        t = SCRATCH[key] = torch.zeros(numel, dtype=dtype, device=device)
+    return t
 
 
 def check(err: int, name: str) -> None:

@@ -102,12 +102,12 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, Hooks hooks,
       fold_in(s0, s1, static_cast<uint32_t>(step), k0, k1);
       flag = kLive;
       if (KIND == kReservoir) {
-        nxt = ervs_warp_select<false>(g, rule, wc, k0, k1, tile, lane);
+        nxt = ervs_warp_select(g, rule, wc, k0, k1, tile, lane);
       } else if (KIND == kRejection) {
         const ErjsResult r = erjs_trials(g, rule, wc, k0, k1, in.bmax[cur],
                                          trials, rounds);
         if (r.fallback) {
-          nxt = ervs_warp_select<false>(g, rule, wc, k0, k1, tile, lane);
+          nxt = ervs_warp_select(g, rule, wc, k0, k1, tile, lane);
           flag |= kFallback;
         } else {
           nxt = r.chosen;
@@ -124,7 +124,7 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, Hooks hooks,
           flag |= kPrecomp;
         }
       } else {  // stale row: the dynamic path
-        nxt = ervs_warp_select<false>(g, rule, wc, k0, k1, tile, lane);
+        nxt = ervs_warp_select(g, rule, wc, k0, k1, tile, lane);
         if (nxt >= 0) flag |= kStale;
       }
     }

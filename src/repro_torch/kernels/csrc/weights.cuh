@@ -90,23 +90,25 @@ __device__ __forceinline__ int dist_code(const Graph& g, int64_t prev, int64_t u
   return has_edge(g, prev, u) ? 1 : 2;
 }
 
-__device__ __forceinline__ float n2v_weight(const Graph& g, const Rule& rule,
-                                            int64_t prev, int64_t nbr,
+__device__ __forceinline__ float n2v_weight(const Rule& rule, int d,
                                             float h) {
-  const int d = dist_code(g, prev, nbr);
   return __fmul_rn(d == 0 ? rule.c0 : (d == 1 ? 1.0f : rule.c2), h);
 }
 
-// w~ of edge `pos` (neighbour `nbr`) for walker `w`, clamped at 0 like the
-// reference's eval_weights.
-__device__ __forceinline__ float edge_weight(const Graph& g, const Rule& rule,
-                                             const WalkerCtx& w, int64_t pos,
-                                             int64_t nbr) {
-  const float h = rule.weighted ? g.h[pos] : 1.0f;
+// w~ of edge `pos` (neighbour `nbr`, h the edge's h or 1 when the rule is
+// unweighted) for walker `w`, clamped at 0 like the reference's
+// eval_weights; `dist()` gives Node2Vec's dist(v', nbr) and is called only
+// by the rules that read it.
+template <class Dist>
+__device__ __forceinline__ float edge_weight_by(const Graph& g,
+                                                const Rule& rule,
+                                                const WalkerCtx& w,
+                                                int64_t pos, int64_t nbr,
+                                                float h, Dist dist) {
   float x = h;
   switch (rule.program) {
     case PROGRAM_NODE2VEC:
-      x = n2v_weight(g, rule, w.prev, nbr, h);
+      x = n2v_weight(rule, dist(), h);
       break;
     case PROGRAM_METAPATH: {
       int64_t s = w.step % rule.schema_len;
@@ -119,20 +121,29 @@ __device__ __forceinline__ float edge_weight(const Graph& g, const Rule& rule,
       const float dp = fmaxf(__int2float_rn(w.deg_prev), 1.0f);
       const float base = __fdiv_rn(rule.g1, dv);
       const float bonus =
-          dist_code(g, w.prev, nbr) == 1 ? __fdiv_rn(rule.g, dp) : 0.0f;
+          dist() == 1 ? __fdiv_rn(rule.g, dp) : 0.0f;
       x = __fmul_rn(__fmul_rn(__fadd_rn(base, bonus), fmaxf(dv, dp)), h);
       break;
     }
     case PROGRAM_VISITED: {
       bool tabu = false;
       for (int i = 0; i < rule.window; ++i) tabu |= w.ring[i] == nbr;
-      x = tabu ? 0.0f : n2v_weight(g, rule, w.prev, nbr, h);
+      x = tabu ? 0.0f : n2v_weight(rule, dist(), h);
       break;
     }
     default:  // DeepWalk, PPR-Nibble: h * 1.0
       break;
   }
   return fmaxf(x, 0.0f);
+}
+
+// edge_weight_by with dist(v', nbr) from a binary search of v''s row.
+__device__ __forceinline__ float edge_weight(const Graph& g, const Rule& rule,
+                                             const WalkerCtx& w, int64_t pos,
+                                             int64_t nbr) {
+  return edge_weight_by(g, rule, w, pos, nbr,
+                        rule.weighted ? g.h[pos] : 1.0f,
+                        [&] { return dist_code(g, w.prev, nbr); });
 }
 
 // A program's hooks in device form (K4), mirroring

@@ -72,12 +72,15 @@ def ervs_select(graph, program, params, cur, prev, step, keys, *,
         return out
     lib = build.library("ervs")
     rs = rule.as_struct()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the jump instance lists the walkers a whole block serves
+    todo = build.scratch("ervs_jump.todo", dev, stream, n + 2,
+                         torch.int32).data_ptr() if jump else None
     err = lib.repro_ervs_select(
         graph.indptr.data_ptr(), graph.indices.data_ptr(),
         graph.h.data_ptr(), graph.labels.data_ptr(), ctypes.byref(rs),
         cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring,
-        keys.data_ptr(), n, tile, int(jump), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        keys.data_ptr(), n, tile, int(jump), out.data_ptr(), todo, stream)
     build.check(err, "ervs_select")
     build.LAUNCHES["ervs_jump_select" if jump else "ervs_select"] += 1
     return out
