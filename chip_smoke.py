@@ -105,9 +105,10 @@ Phases (any failure exits non-zero and prints no result line):
              steps (deepwalk) or 4 steps (ppr_nibble, whose lanes are
              still alive there), held against its plain version on the
              same state; for the reservoir regime, whose torch row scans
-             take minutes per step here (~10^11 edges for deepwalk), both
-             versions run one step of all walkers from that state, and the
-             16-step launch is timed beside it.
+             take minutes per step here (~10^11 edges for deepwalk), the
+             kernel and the plain version run one step of every walker
+             from that state, and the 16-step launch is timed beside it.  The build phase logs the SASS of K4's
+             reservoir edge loops by pipe (``scan_sass``).
 
 ``jump_threshold`` is lowered from the default 1024 to 8, the cost
 model's ``min_rjs_degree``: at uniform weights Eq. 11 sends every hub to
@@ -141,10 +142,44 @@ WALK_STEPS = 80
 JUMP_THRESHOLD = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 PEAK_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-# integer operations of one Threefry-2x32 (20 rounds of add/rotate/xor,
-# five key injections), counted at the float32 rate above, since the
-# H100's peak-rate table used here lists no 32-bit integer rate
+# integer operations of one Threefry-2x32 (20 rounds of add, rotate as two
+# shifts and an or, xor; five key injections), counted at the float32 rate
+# above.  On the H100 that count is right only by coincidence: 67e12
+# counts an FMA as two operations at 128 lanes an SM, so 122 / 67e12 is
+# ~61 instructions at the issue rate, near the SASS's 68 (THREEFRY_INSTR)
+# because a rotate is one SHF; but 41 of those run only on the integer
+# ALU, at half the lanes, which takes 34% longer.  The bounds of K4's
+# reservoir regime and of plain K1 count by pipe (pipe_bound); the others
+# keep this count until theirs are recounted.
 THREEFRY_OPS = 122
+# the pipe counts, from the SASS of the scan's edge loop
+# (scan_row_call<kScanH, true> in K4; every run logs the loop): one
+# Threefry-2x32 and the bits' xor is 68 instructions (20 SHF, 21 LOP3,
+# 9 IADD3, 18 IMAD.IADD), 41 of which (the SHF rotates and the LOP3 xors)
+# only the integer ALU runs, an add can issue as IMAD on the FMA pipe; the
+# key's parity k0 ^ k1 ^ 0x1BD11BDA (one LOP3) depends on the key alone,
+# so the function needs it once a key: once a tile for the edges' draws
+# (the loop's SASS takes it every edge, ptxas did not hoist it, which is
+# this kernel's cost, not the function's); the uniform's map (one LEA.HI,
+# four float operations); the compare of an edge's key against the
+# running best; the exact key of an edge that may become a thread's new
+# best (logf and __fdiv_rn, 42 instructions, 3 of them integer)
+THREEFRY_INSTR, THREEFRY_ALU = 68, 41
+PARITY_INSTR, PARITY_ALU = 1, 1
+UNIFORM_INSTR, UNIFORM_ALU = 5, 1
+KEY_COMPARE_INSTR = 1
+EXACT_KEY_INSTR, EXACT_KEY_ALU = 42, 3
+# lanes an SM a clock on the H100: the integer ALU's, and the issue's
+INT_ALU_LANES = 64
+ISSUE_LANES = 128
+# the integer-ALU opcodes of the SASS (the rest issue elsewhere: IMAD and
+# the float operations on the FMA pipe, MUFU, loads, shuffles, branches)
+SASS_ALU = ("IADD3", "LOP3", "SHF", "ISETP", "SEL", "LEA", "PRMT", "IMNMX",
+            "PLOP3", "FLO", "POPC", "BMSK", "SGXT", "IABS")
+# near-tie differences from the plain version that plain K1 and K4's
+# reservoir regime may show on the smoke's lanes: the unfiltered scan's
+# count there, 0 on every row
+SCAN_NEAR_TIES = 0
 # kernels each program's adaptive main-path run must launch
 ADAPTIVE_NEEDS = {
     "node2vec": ("ervs_select", "ervs_jump_select", "erjs_select"),
@@ -181,7 +216,7 @@ STAGED_NEEDS = {"ervs": ("ervs_select",), "erjs": ("erjs_select",),
 # steps of the K4 launches checked (phase 3) and timed (phase 5)
 K4_EPOCH = 16
 # steps over which phase 5 holds K4's reservoir regime against its plain
-# version on every walker (the plain row scans take minutes per step)
+# version on every walker (~10^11 edges a step for deepwalk)
 K4_RESERVOIR_PLAIN_EPOCH = 1
 # main-path depth of the adaptive programs cut below WALK_STEPS to keep the
 # smoke inside its time limit (2ndpr: 140 s at 80 steps)
@@ -322,6 +357,198 @@ def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_SM = {}
+
+
+def sm_rate():
+    """(SMs, SM clock in Hz) of card 0, the clock nvidia-smi's
+    clocks.max.sm; read once."""
+    if not _SM:
+        import torch
+
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True)
+        try:
+            mhz = float(out.stdout.strip().splitlines()[0])
+        except (ValueError, IndexError):
+            fail(f"nvidia-smi gave no clocks.max.sm: {out.stdout!r} "
+                 f"{out.stderr!r}")
+        _SM.update(sms=torch.cuda.get_device_properties(0)
+                   .multi_processor_count, hz=mhz * 1e6)
+    return _SM["sms"], _SM["hz"]
+
+
+def pipe_bound(nbytes: float, alu: float, instr: float):
+    """(ms, what bounds it) for work counted by pipe: bytes at the
+    memory rate, integer-ALU instructions at INT_ALU_LANES and every
+    instruction at ISSUE_LANES lanes an SM a clock (``sm_rate``)."""
+    sms, hz = sm_rate()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(alu / INT_ALU_LANES, instr / ISSUE_LANES) / (sms * hz) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pipe_note(per_edge_bytes: float) -> str:
+    """How a pipe bound of the plain scan was counted, for its row."""
+    sms, hz = sm_rate()
+    return (f"per scanned edge {per_edge_bytes:g} B and "
+            f"{THREEFRY_ALU + UNIFORM_ALU} integer-ALU of "
+            f"{THREEFRY_INSTR + UNIFORM_INSTR + KEY_COMPARE_INSTR} "
+            f"instructions (Threefry from the SASS, the uniform, the "
+            f"compare); per tile of a row the tile key's fold and parity "
+            f"({THREEFRY_ALU + PARITY_ALU} integer-ALU); per walker step its "
+            f"inputs, the step key's parity, the winner's neighbour "
+            f"and the expected exact keys ({EXACT_KEY_INSTR} instructions "
+            f"each, H(m) for a thread of m edges); the ALU at "
+            f"{INT_ALU_LANES} and the issue at {ISSUE_LANES} lanes an SM a "
+            f"clock, {sms} SMs at {hz / 1e6:.0f} MHz (nvidia-smi "
+            f"clocks.max.sm)")
+
+
+def scan_ops(d, tile: int):
+    """(integer-ALU instructions, instructions) the plain scan's
+    function needs on rows of ``d`` edges (a float64 tensor, one row a
+    walker step) at logical tile ``tile``: per edge a Threefry, the
+    uniform and the compare; per tile of a row the tile key (a Threefry
+    of the step key) and its parity; per row the step key's parity and
+    the exact keys.  A warp's thread holds m of a row's edges, and over m
+    keys in random order the running best changes H(m) times on average,
+    H(m) = digamma(m + 1) + Euler's constant."""
+    import torch
+
+    q = torch.floor(d / 32)
+    rem = d - 32 * q
+    harmonic = lambda m: torch.special.digamma(m + 1) + 0.5772156649015329
+    exact = float((rem * harmonic(q + 1) + (32 - rem) * harmonic(q)).sum())
+    edges = float(d.sum())
+    tiles = float(torch.ceil(d / tile).sum())
+    rows = float((d > 0).sum())
+    return (edges * (THREEFRY_ALU + UNIFORM_ALU)
+            + tiles * (THREEFRY_ALU + PARITY_ALU) + rows * PARITY_ALU
+            + exact * EXACT_KEY_ALU,
+            edges * (THREEFRY_INSTR + UNIFORM_INSTR + KEY_COMPARE_INSTR)
+            + tiles * (THREEFRY_INSTR + PARITY_INSTR) + rows * PARITY_INSTR
+            + exact * EXACT_KEY_INSTR)
+
+
+# ------------------------------------------------------------------ SASS
+SCAN_RULES = {"0": "H", "1": "MetaPath", "2": "Dist", "3": "Visited"}
+# (library, kernel) whose scan loops the build phase logs: K4's reservoir
+# instance without hooks (plain K1 inlines its eight loops)
+SCAN_KERNELS = (("megastep", "fused_epoch_kernelILi0ELi0E"),)
+
+
+def _cuobjdump(lib, what: str) -> str:
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/cuobjdump")
+    out = subprocess.run([tool, what, str(lib)], capture_output=True,
+                         text=True)
+    if out.returncode:
+        fail(f"cuobjdump {what} {lib} failed: {out.stderr[-2000:]}")
+    return out.stdout
+
+
+def sass_functions(lib, kernel: str) -> dict:
+    """{function: [(address, instruction), ...]} of the SASS of the first
+    kernel of the shared library ``lib`` whose name holds ``kernel``
+    (``cuobjdump -sass``): the kernel's own code under its name, and each
+    non-inlined function it calls under that function's name (its offset
+    and size from the kernel's ELF symbols, ``cuobjdump -elf``)."""
+    code, name = {}, None
+    for ln in _cuobjdump(lib, "-sass").splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            code[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m and name:
+            code[name].append((int(m.group(1), 16), m.group(2)))
+    names = [n for n in code if kernel in n]
+    if not names:
+        return {}
+    out = {names[0]: code[names[0]]}
+    sym = re.compile(r"\s(0x[0-9a-f]+|\d+)\s+(0x[0-9a-f]+|\d+)\s+\S+\s+\S+"
+                     r"\s+\S+\s+\$" + re.escape(names[0]) + r"\$(\w+)")
+    for m in sym.finditer(_cuobjdump(lib, "-elf")):
+        lo, size = int(m.group(1), 0), int(m.group(2), 0)
+        out[m.group(3)] = [(a, i) for a, i in code[names[0]]
+                           if lo <= a < lo + size]
+    return out
+
+
+def hot_loop(code) -> dict:
+    """Opcode counts of the smallest loop (a backward branch's target to
+    the branch) of ``code`` that holds a Threefry (>= 20 SHF): the scan's
+    edge loop, with the blocks laid out inside it that run rarely (a new
+    tile's key, the exact key).  {} when there is none."""
+    from collections import Counter
+
+    ops = [(a, re.sub(r"^@!?U?P\w+\s+", "", ins)) for a, ins in code]
+    # the stubs after the last RET or EXIT (a divergent warp's shuffles and
+    # votes) branch back into the body: they close no loop
+    ends = [a for a, ins in ops if ins.startswith(("RET", "EXIT"))]
+    last = ends[-1] if ends else float("inf")
+    best = None
+    for i, (a, ins) in enumerate(ops):
+        m = re.match(r"BRA\S*\s.*?(0x[0-9a-f]+)\s*$", ins)
+        if not m or int(m.group(1), 16) >= a or a > last:
+            continue
+        lo = int(m.group(1), 16)
+        body = [x for b, x in ops[:i + 1] if b >= lo]
+        fam = Counter(x.split()[0].split(".")[0] for x in body)
+        if fam["SHF"] >= 20 and (best is None or len(body) < best[0]):
+            best = (len(body), fam)
+    if best is None:
+        return {}
+    fam = best[1]
+    return dict(instructions=best[0], alu=sum(fam[k] for k in SASS_ALU),
+                imad=fam["IMAD"] + fam["VIADD"],
+                float=sum(fam[k] for k in ("FFMA", "FADD", "FMUL", "FSETP",
+                                           "FMNMX", "FSEL")),
+                mufu=fam["MUFU"], loads=sum(fam[k] for k in ("LDG", "LD",
+                                                             "LDL", "LDS")),
+                warp=sum(fam[k] for k in ("SHFL", "VOTE", "WARPSYNC")),
+                branch=sum(fam[k] for k in ("BRA", "BSSY", "BSYNC", "CALL",
+                                            "RET")),
+                shf=fam["SHF"], lop3=fam["LOP3"], iadd3=fam["IADD3"])
+
+
+def scan_sass(lib, kernel: str) -> dict:
+    """{label: hot_loop counts} of the plain scan's edge loops as the
+    first kernel of ``lib`` named with ``kernel`` runs them: one per
+    ``scan_row_call<RC, W>`` instance, labelled by rule class and weighting; a
+    kernel whose scan is inlined, under its own name."""
+    funcs = sass_functions(lib, kernel)
+    scans = {n: c for n, c in funcs.items() if "scan_row_call" in n}
+    out = {}
+    for name, code in (scans or funcs).items():
+        m = re.search(r"scan_row_callILi(\d)ELb([01])E", name)
+        label = (f"scan_row<{SCAN_RULES[m.group(1)]}, "
+                 f"{'weighted' if m.group(2) == '1' else 'unweighted'}>"
+                 if m else name[:40])
+        loop = hot_loop(code)
+        if loop:
+            out[label] = loop
+    return out
+
+
+def ptxas_lines(log_text: str):
+    """(function, registers or spill line) pairs of a ptxas -v log."""
+    name = ""
+    for ln in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", ln)
+        if m:
+            name = m.group(1)
+        elif "registers" in ln or "spill" in ln:
+            yield name, ln.split(":", 1)[-1].strip()
 
 
 # ---------------------------------------------------------------- checks
@@ -953,6 +1180,34 @@ def jump_work(g, prev, d, got, pname: str, weighted: bool,
     return nbytes, ops
 
 
+def scan_edge_bytes(pname: str, weighted: bool) -> float:
+    """Bytes one edge of the plain scan reads: h when the rule is
+    ``weighted``, MetaPath's label, and the neighbour for the rules whose
+    weight tests dist(v', u)."""
+    return ((4.0 if weighted else 0.0)
+            + (4.0 if pname.startswith("metapath") else 0.0)
+            + (4.0 if pname in SECOND_ORDER else 0.0))
+
+
+def plain_scan_work(g, prev, d, pname: str, weighted: bool, ring: float,
+                    tile: int):
+    """(bytes, integer-ALU instructions, instructions) plain K1's
+    function needs on walkers with rows of ``d`` edges at logical tile
+    ``tile``, whatever runs it:
+    each walker's inputs and result (64 B), its ``ring`` bytes and its
+    winner's neighbour; ``scan_edge_bytes`` an edge, and for the rules that
+    test dist(v', u) the previous row once a walker (one entry an edge
+    where that row is longer); the operations of ``scan_ops``."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+
+    prev_row = (4.0 * torch.minimum(degrees_of(g, prev).to(torch.float64), d)
+                if pname in SECOND_ORDER else 0.0)
+    nbytes = float((68.0 + ring + d * scan_edge_bytes(pname, weighted)
+                    + prev_row).sum())
+    return (nbytes, *scan_ops(d, tile))
+
+
 def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
     """Phase 5: each kernel at the shapes one main-path step gives it
     (the state after ``MID_STEP`` steps), per program of ``engines``
@@ -1045,22 +1300,27 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                 fail(f"{name} [{pname}] at main-path shapes: {unexplained} "
                      f"differences from the plain version break the rule: "
                      f"{K1_RULE[jump]}")
+            weighted = kernel_rule(prog, params).weighted
+            note = {}
             if jump:
                 b_ms, b_by = bound(*jump_work(
-                    g, prev, d, got, pname,
-                    kernel_rule(prog, params).weighted,
-                    ring_bytes(ws, pname)))
+                    g, prev, d, got, pname, weighted, ring_bytes(ws, pname)))
             else:
-                nbytes = float((64.0 + ring_bytes(ws, pname)
-                                + d * edge_bytes(g, prev, pname)).sum())
-                b_ms, b_by = bound(nbytes,
-                                   float(d.sum()) * (THREEFRY_OPS + 40))
+                if n_bad > SCAN_NEAR_TIES:
+                    fail(f"{name} [{pname}] at main-path shapes: {n_bad} "
+                         f"near-tie differences from the plain version, "
+                         f"above the unfiltered scan's {SCAN_NEAR_TIES}")
+                b_ms, b_by = pipe_bound(*plain_scan_work(
+                    g, prev, d, pname, weighted, ring_bytes(ws, pname),
+                    cfg.tile))
+                note = dict(bound_note=pipe_note(
+                    scan_edge_bytes(pname, weighted)))
             rows[name, pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 plain_ms=plain_ms,
                 max_abs_err=int((got[chk] - want).abs().max()),
                 mismatches=n_bad, bound_ms=b_ms, bound_by=b_by,
-                checked=int(chk.numel()))
+                checked=int(chk.numel()), **note)
             if hub_all is not None:
                 # what checking every lane on the largest rows would take,
                 # at the plain version's rate per edge on the checked set
@@ -1115,7 +1375,9 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
             f"{r['step']}, kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms (on {r.get('checked', r['lanes'])} "
             f"lanes), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['mismatches']} differences")
+            f"{r['mismatches']} differences"
+            + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
+               else ""))
     return rows
 
 
@@ -1180,6 +1442,45 @@ def k4_work(eng, state0, emitted, flags, args: dict):
     return nbytes, ops
 
 
+def k4_reservoir_work(eng, state0, emitted, flags):
+    """(bytes, integer-ALU instructions, instructions) a K4 launch of the
+    reservoir regime from ``state0`` needs on this run's data: each input
+    read once and each output written once as ``k4_work`` counts them;
+    per live step the row's bounds, the winner's neighbour (12 B) and the
+    step key (a Threefry and ~20 instructions, 4 more for hooks; the
+    parity of its key, the walker's seed, once a walker); per scanned
+    edge h when the rule is weighted, and ``scan_ops``."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.core.types import StepStats as S
+    from repro_torch.kernels.ervs import kernel_rule
+
+    g = eng.graph
+    W, T = emitted.shape
+    hooked = eng.workload.has_hooks
+    weighted = kernel_rule(eng.workload, eng.sampler_ctx.params).weighted
+    nbytes = W * (41.0 + 25.0 + 8.0 * T + (8.0 if hooked else 0.0))
+    alu = instr = 0.0
+    cur, prev = state0.cur, state0.prev
+    stepped = torch.zeros(W, dtype=torch.bool, device=cur.device)
+    for t in range(T):
+        live = ((flags[:, t] >> S.LIVE) & 1).bool()
+        stepped |= live
+        d = degrees_of(g, cur[live]).to(torch.float64)
+        n_live = float(live.sum())
+        nbytes += n_live * 12.0 + float(d.sum()) * (4.0 if weighted else 0.0)
+        e_alu, e_instr = scan_ops(d, eng.config.tile)
+        alu += n_live * THREEFRY_ALU + e_alu
+        instr += n_live * (THREEFRY_INSTR + 20 + (4 if hooked else 0)) \
+            + e_instr
+        moved = emitted[:, t] >= 0
+        prev = torch.where(moved, cur, prev)
+        cur = torch.where(moved, emitted[:, t].long(), cur)
+    n_walkers = float(stepped.sum())
+    return (nbytes, alu + n_walkers * PARITY_ALU,
+            instr + n_walkers * PARITY_INSTR)
+
+
 def time_fused(fused: dict, pname: str) -> dict:
     """Phase 5b: one K4 launch of ``K4_EPOCH`` steps per regime of program
     ``pname`` from the state after ``MID_STEP`` steps, and K5 at that
@@ -1193,6 +1494,7 @@ def time_fused(fused: dict, pname: str) -> dict:
     from repro_torch.core.precomp import alias_offsets
     from repro_torch.kernels import megastep
     from repro_torch.kernels.alias import alias_pick
+    from repro_torch.kernels.ervs import kernel_rule
 
     rows = {}
     step_at = MID_STEP[pname]
@@ -1209,12 +1511,18 @@ def time_fused(fused: dict, pname: str) -> dict:
                                               **args)
         # K4 already ran in phases 3 and 4: this launch is warm
         got, ms = cuda_once(launch)
-        b_ms, b_by = bound(*k4_work(eng, state, got[1], got[2], args))
         extra = {}
         if kind == "reservoir":
-            extra = dict(epoch16_ms=ms, epoch16_bound_ms=b_ms)
+            b_ms, b_by = pipe_bound(*k4_reservoir_work(eng, state, got[1],
+                                                       got[2]))
+            extra = dict(epoch16_ms=ms, epoch16_bound_ms=b_ms,
+                         bound_note=pipe_note(4.0 if kernel_rule(
+                             eng.workload, p).weighted else 0.0))
             args.update(epoch_len=K4_RESERVOIR_PLAIN_EPOCH)
             got, ms = cuda_once(launch)
+            b_ms, b_by = pipe_bound(*k4_reservoir_work(eng, state, got[1],
+                                                       got[2]))
+        else:
             b_ms, b_by = bound(*k4_work(eng, state, got[1], got[2], args))
         want, plain_ms = cuda_once(lambda: megastep.fused_epoch_plain(
             g, eng.workload, p, state, **args))
@@ -1224,6 +1532,10 @@ def time_fused(fused: dict, pname: str) -> dict:
             fail(f"fused_epoch_{kind} [{pname}] at main-path shapes: "
                  f"{unexplained} walkers differ from the plain version other "
                  f"than at a reservoir near-tie")
+        if kind == "reservoir" and n_bad > SCAN_NEAR_TIES:
+            fail(f"fused_epoch_reservoir [{pname}] at main-path shapes: "
+                 f"{n_bad} walkers part from the plain version at near-ties, "
+                 f"above the unfiltered scan's {SCAN_NEAR_TIES}")
         rows[f"fused_epoch_{kind}", pname] = dict(
             lanes=n_live, step=step_at, steps=args["epoch_len"], ms=ms,
             plain_ms=plain_ms, max_abs_err=0, mismatches=n_bad,
@@ -1258,7 +1570,9 @@ def time_fused(fused: dict, pname: str) -> dict:
             f"{r['step']}{steps}, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
-            f"walkers differ{extra}")
+            f"walkers differ{extra}"
+            + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
+               else ""))
     return rows
 
 
@@ -1795,17 +2109,18 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} "
         f"sources")
     for f in sorted(build.build_dir().glob("*.log")):
-        # per kernel instance (its mangled name carries the template
-        # arguments, e.g. fused_epoch_kernelILi2ELi1E = KIND 2, HOOK 1):
+        # per kernel instance and non-inlined function (its mangled name
+        # carries the template arguments, e.g. fused_epoch_kernelILi2ELi1E
+        # = KIND 2, HOOK 1; scan_row_callILi0ELb1E = rule class 0, weighted):
         # registers, and the spill line of its function properties
-        entry = ""
-        for ln in f.read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", ln)
-            if m:
-                entry = m.group(1)[:48]
-            elif "registers" in ln or "spill" in ln:
-                log(f"ptxas {f.stem.split('-')[0]} {entry}: "
-                    f"{ln.split(':', 1)[-1].strip()}")
+        for name, what in ptxas_lines(f.read_text()):
+            log(f"ptxas {f.stem.split('-')[0]} {name[:56]}: {what}")
+    # the plain scan's edge loops as built, by pipe: K4's reservoir
+    # instance (deepwalk runs scan_row<H, weighted>)
+    for stem, kernel in SCAN_KERNELS:
+        for label, c in scan_sass(build._lib_path(f"{stem}.cu"),
+                                  kernel).items():
+            log(f"sass {kernel} {label}: edge loop {c}")
 
     # 1b. LM serving at full width
     lm_rows = lm_phase(torch.device("cuda"), LM_TIMING_REPS)
@@ -1911,7 +2226,7 @@ def main() -> int:
             "lanes": r["lanes"], "step": r["step"],
             "mismatches": r["mismatches"],
             **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms",
-                                 "checked") if k in r}})
+                                 "checked", "bound_note") if k in r}})
     for (name, label), n in ops_launches.items():
         r = ops_rows[name, label]
         src, replaces = SOURCES[name]

@@ -12,14 +12,15 @@
 // node's degree second-order PageRank, and each lane's ring row
 // (visited-avoiding, read for every scanned edge) the tabu test.
 //
-// What bounds them on the H100.  Plain: memory latency — each scanned
-// edge reads its neighbour id and h (8 B, coalesced across the warp) and,
-// for the second-order rules, binary-searches the previous node's row
-// (log2 d dependent 4 B reads), plus one Threefry (~120 integer ops) and
-// a logf; one warp per walker looping over the walker's own degree.
-// Low-degree walkers leave most of a warp idle; packing several walkers
-// per warp is a later optimisation.  Jump: the 8 B an edge reads; it
-// draws no random numbers and searches nothing on an edge it does not
+// What bounds them on the H100.  Plain: one Threefry per scanned edge, on
+// the integer ALU; ervs.cuh keeps everything else off the edge (no
+// division, tile keys folded once per warp, the exact key only where a
+// cheap bound says it may win, one edge loop per rule class reading only
+// what the rule reads, the dist(v', u) test by a cursor per thread).  One
+// warp per walker over the walker's own degree: low-degree walkers leave
+// most of a warp idle and wait on their dependent reads; packing several
+// walkers per warp is a later optimisation.  Jump: the 8 B an edge reads;
+// it draws no random numbers and searches nothing on an edge it does not
 // take (ervs_jump.cuh says how), and a walker on a long row gets a block.
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -29,21 +30,25 @@
 
 namespace repro {
 
-__global__ void ervs_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
-                            const int64_t* __restrict__ prev,
-                            const int64_t* __restrict__ step,
-                            const int32_t* __restrict__ ring,
-                            const int64_t* __restrict__ keys, int n, int tile,
-                            int64_t* __restrict__ out) {
+// Plain.  Held to 6 blocks of 256 threads an SM (40 registers a thread):
+// most walkers' rows are short and wait on dependent reads, so warps in
+// flight are what they need (on an H100, adaptive node2vec's plain lanes
+// took 14% longer at 48 registers).
+__global__ void __launch_bounds__(256, 6)
+ervs_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
+            const int64_t* __restrict__ prev, const int64_t* __restrict__ step,
+            const int32_t* __restrict__ ring, const int64_t* __restrict__ keys,
+            int n, int tile, int64_t* __restrict__ out) {
   const int walker = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (walker >= n) return;  // whole warps exit together
+  const ScanTile st = scan_tile(tile, lane);
   const WalkerCtx wc = walker_ctx(
       g, rule, cur[walker], prev[walker], step[walker],
       ring ? ring + static_cast<int64_t>(walker) * rule.window : nullptr);
   const int64_t nxt = ervs_warp_select(
       g, rule, wc, static_cast<uint32_t>(keys[2 * walker]),
-      static_cast<uint32_t>(keys[2 * walker + 1]), tile, lane);
+      static_cast<uint32_t>(keys[2 * walker + 1]), st, lane);
   if (lane == 0) out[walker] = nxt;
 }
 

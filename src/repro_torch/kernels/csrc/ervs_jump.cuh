@@ -77,38 +77,6 @@ __device__ __forceinline__ float xla_log_key(float u, float w) {
   return w > 0.0f ? __fdiv_rn(xla_log(u), w) : -CUDART_INF_F;
 }
 
-// Whether u lies in idx[c, end), given that every entry before c is below
-// u; moves c to u's lower bound.  The first search (c < begin) is a binary
-// search of [begin, end); a later one gallops from c (1, 2, 4, ... entries
-// on), then binary-searches the last step.
-__device__ __forceinline__ bool search_from(const int32_t* __restrict__ idx,
-                                            int& c, int begin, int end,
-                                            int64_t u) {
-  int lo = c < begin ? begin : c, hi = end;
-  if (c >= begin) {
-    if (lo < end && idx[lo] < u) {
-      for (int step = 1;; step <<= 1) {  // idx[lo] < u
-        if (step >= end - lo) break;
-        const int probe = lo + step;
-        if (idx[probe] >= u) {
-          hi = probe;
-          break;
-        }
-        lo = probe;
-      }
-      ++lo;
-    } else {
-      hi = lo;
-    }
-  }
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (idx[mid] < u) lo = mid + 1; else hi = mid;
-  }
-  c = lo;
-  return lo < end && idx[lo] == u;
-}
-
 // Lanes base + lane (lane = threadIdx.x & 31, base warp-uniform) of walker
 // `jw` through every tile that reaches them: this thread's lane's final
 // (key, neighbour) in lk / nbr, (-inf, -1) when the lane holds no

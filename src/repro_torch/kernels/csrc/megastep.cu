@@ -20,22 +20,27 @@
 // One instance per (regime, hook rule); the regimes (FUSED_KINDS):
 //   reservoir      ervs_warp_select (ervs.cuh), the code K1 runs;
 //   rejection      erjs_trials (erjs.cuh, K2's code) against the baked
-//                  per-node bound bmax, the reservoir when trials run out;
+//                  per-node bound bmax, the reservoir's choice (by
+//                  ervs_warp_select_unfiltered) when trials run out;
 //   precomp_its    its_offset (its.cuh, K3's code) on valid rows,
 //   precomp_alias  alias_offset (alias.cuh, K5's code) on valid rows;
-//                  stale rows take the reservoir.
+//                  stale rows take the reservoir's choice (the same).
 // Every draw comes from the same Threefry counters as the staged scan, so
 // paths, end state and flags equal it bit for bit.  The TPU kernel's
 // [R, 128] row alignment and slack tiles were DMA constraints: this reads
 // the plain CSR.  The logical tile still feeds the reservoir's counters.
 //
-// What bounds it on the H100: the reservoir's row scans (one Threefry and
-// a logf per edge of the walker's row) and, for the other regimes, chains
-// of dependent 4 B reads (degree, CDF probes, alias columns).  Design: one
+// What bounds it on the H100: the reservoir's row scans, one Threefry per
+// scanned edge on the integer ALU (ervs.cuh says how the scan keeps
+// everything else off the edge), and, for the other regimes, chains of
+// dependent 4 B reads (degree, CDF probes, alias columns); their rare row
+// scans (eRJS fallbacks, stale rows) keep the unfiltered loop.  Design: one
 // warp per walker lane for the whole epoch.  The scalar regimes run on all
 // 32 threads alike (same addresses, one transaction), so control flow stays
 // warp-uniform and the reservoir can use the whole warp.  A warp whose
 // walker sits on a hub scans that hub's row every step it stays there.
+// The logical tile's steps are taken at each scan (scan_tile), where they
+// cost no division for the engine's tiles and hold no register meanwhile.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -76,11 +81,15 @@ struct EpochOut {
   float* mass;
 };
 
+// The reservoir instances are held to 6 blocks of 256 threads an SM (40
+// registers; on an H100 a deepwalk step took 2-3% less than at 48: most
+// steps wait on dependent reads, so warps in flight matter).  The other
+// regimes keep ptxas's own count.
 template <int KIND, int HOOK>
-__global__ void fused_epoch_kernel(Graph g, Rule rule, Hooks hooks,
-                                   EpochIn in, EpochOut out, int n, int tile,
-                                   int trials, int rounds, int epoch_len,
-                                   int64_t num_steps) {
+__global__ void __launch_bounds__(256, KIND == kReservoir ? 6 : 1)
+fused_epoch_kernel(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
+                   int n, int tile, int trials, int rounds, int epoch_len,
+                   int64_t num_steps) {
   const int64_t w = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -88,6 +97,23 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, Hooks hooks,
   int64_t cur = in.cur[w], prev = in.prev[w], step = in.step[w];
   bool alive = in.alive[w];
   float mass = HOOK == HOOK_PPR_NIBBLE ? in.mass[w] : 0.0f;
+  if (!(alive && step < num_steps)) {
+    // a lane that cannot step this epoch emits -1 and flag 0 at every step
+    // and keeps its state, as the loop below would (most of PPR-Nibble's
+    // lanes, stopped early)
+    for (int t = lane; t < epoch_len; t += 32) {
+      out.emitted[w * epoch_len + t] = -1;
+      out.flags[w * epoch_len + t] = 0;
+    }
+    if (lane == 0) {
+      out.cur[w] = cur;
+      out.prev[w] = prev;
+      out.step[w] = step;
+      out.alive[w] = alive;
+      if (HOOK == HOOK_PPR_NIBBLE) out.mass[w] = mass;
+    }
+    return;
+  }
   const uint32_t s0 = static_cast<uint32_t>(in.rng[2 * w]);
   const uint32_t s1 = static_cast<uint32_t>(in.rng[2 * w + 1]);
   for (int t = 0; t < epoch_len; ++t) {
@@ -102,12 +128,13 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, Hooks hooks,
       fold_in(s0, s1, static_cast<uint32_t>(step), k0, k1);
       flag = kLive;
       if (KIND == kReservoir) {
-        nxt = ervs_warp_select(g, rule, wc, k0, k1, tile, lane);
+        nxt = ervs_warp_select(g, rule, wc, k0, k1, scan_tile(tile, lane),
+                               lane);
       } else if (KIND == kRejection) {
         const ErjsResult r = erjs_trials(g, rule, wc, k0, k1, in.bmax[cur],
                                          trials, rounds);
         if (r.fallback) {
-          nxt = ervs_warp_select(g, rule, wc, k0, k1, tile, lane);
+          nxt = ervs_warp_select_unfiltered(g, rule, wc, k0, k1, tile, lane);
           flag |= kFallback;
         } else {
           nxt = r.chosen;
@@ -124,7 +151,7 @@ __global__ void fused_epoch_kernel(Graph g, Rule rule, Hooks hooks,
           flag |= kPrecomp;
         }
       } else {  // stale row: the dynamic path
-        nxt = ervs_warp_select(g, rule, wc, k0, k1, tile, lane);
+        nxt = ervs_warp_select_unfiltered(g, rule, wc, k0, k1, tile, lane);
         if (nxt >= 0) flag |= kStale;
       }
     }

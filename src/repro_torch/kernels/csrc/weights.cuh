@@ -82,6 +82,40 @@ __device__ __forceinline__ bool has_edge(const Graph& g, int64_t v, int64_t u) {
   return lo < end && g.indices[lo] == u;
 }
 
+// Whether u lies in idx[c, end), given that every entry before c is below
+// u; moves c to u's lower bound.  The first search (c < begin) is a binary
+// search of [begin, end); a later one gallops from c (1, 2, 4, ... entries
+// on), then binary-searches the last step.  A scan whose neighbours rise
+// walks one cursor through v''s row this way instead of searching it whole
+// per edge.
+__device__ __forceinline__ bool search_from(const int32_t* __restrict__ idx,
+                                            int& c, int begin, int end,
+                                            int64_t u) {
+  int lo = c < begin ? begin : c, hi = end;
+  if (c >= begin) {
+    if (lo < end && idx[lo] < u) {
+      for (int step = 1;; step <<= 1) {  // idx[lo] < u
+        if (step >= end - lo) break;
+        const int probe = lo + step;
+        if (idx[probe] >= u) {
+          hi = probe;
+          break;
+        }
+        lo = probe;
+      }
+      ++lo;
+    } else {
+      hi = lo;
+    }
+  }
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (idx[mid] < u) lo = mid + 1; else hi = mid;
+  }
+  c = lo;
+  return lo < end && idx[lo] == u;
+}
+
 // Node2Vec's dist(v', u): 0 if u == v', 1 if (v' -> u) is an edge, else 2;
 // 1 before the first step (v' == -1).
 __device__ __forceinline__ int dist_code(const Graph& g, int64_t prev, int64_t u) {

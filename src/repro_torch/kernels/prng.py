@@ -11,8 +11,11 @@ Two families of draws share one generator:
   ``uniform(minval=1e-12)`` built from those bits (:func:`uniform`).
 
 Keys are ``[..., 2]`` int64 tensors holding uint32 values.  torch has no
-uint32 add or shift on the CPU, so the arithmetic runs in int64 masked to
-32 bits; ``csrc/threefry.cuh`` is the same generator as device code.
+uint32 add or shift on the CPU, so the rounds run on int32 tensors holding
+the same bits (adds wrap; a right shift is masked to act as a logical
+one), half the bytes of int64 and no mask after every add, and results
+come back as int64; ``csrc/threefry.cuh`` is the same generator as device
+code.
 """
 from __future__ import annotations
 
@@ -29,25 +32,61 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def _bits32(x):
+    """``x`` mod 2**32 as int32 bits: an int32 tensor, or an int in
+    int32's range."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.int32:
+            return x
+        x = x.long() & MASK32
+        return (x - ((x >> 31) << 32)).to(torch.int32)
+    x = int(x) & MASK32
+    return x - (1 << 32) if x >> 31 else x
+
+
+def _add(a, b):
+    """a + b mod 2**32 on int32 bits (tensor adds wrap)."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return a + b
+    return _bits32(a + b)
+
+
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & MASK32) | (x >> (32 - r))
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+
+def _threefry32(k0, k1, x0, x1):
+    """:func:`threefry2x32` with int32 bits in and out."""
+    ts = [v for v in (k0, k1, x0, x1) if isinstance(v, torch.Tensor)]
+    dev = ts[0].device if ts else None
+    k0, k1, x0, x1 = map(_bits32, (k0, k1, x0, x1))
+    k2 = _bits32(k0 ^ k1 ^ _PARITY)
+    ks = (k0, k1, k2)
+    x0 = _add(x0, k0)
+    x1 = _add(x1, k1)
+    if not isinstance(x1, torch.Tensor):
+        x1 = torch.tensor(x1, dtype=torch.int32, device=dev)
+    for block in range(5):
+        for r in range(4):
+            x0 = _add(x0, x1)
+            x1 = _rotl(x1, _ROTATIONS[(block % 2) * 4 + r]) ^ x0
+        inj = block + 1
+        x0 = _add(x0, ks[inj % 3])
+        x1 = _add(x1, _add(ks[(inj + 1) % 3], inj))
+    return x0, x1
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits as the int64 uint32 value."""
+    return x.long() & MASK32
 
 
 def threefry2x32(k0, k1, x0, x1):
     """20-round Threefry-2x32 on int64 tensors (or ints) holding uint32
-    values: (key0, key1, ctr0, ctr1) -> (r0, r1), broadcast."""
-    k2 = k0 ^ k1 ^ _PARITY
-    ks = (k0, k1, k2)
-    x0 = (x0 + k0) & MASK32
-    x1 = (x1 + k1) & MASK32
-    for block in range(5):
-        for r in range(4):
-            x0 = (x0 + x1) & MASK32
-            x1 = _rotl(x1, _ROTATIONS[(block % 2) * 4 + r]) ^ x0
-        inj = block + 1
-        x0 = (x0 + ks[inj % 3]) & MASK32
-        x1 = (x1 + ks[(inj + 1) % 3] + inj) & MASK32
-    return x0, x1
+    values: (key0, key1, ctr0, ctr1) -> (r0, r1) as int64 tensors holding
+    uint32 values, broadcast."""
+    r0, r1 = _threefry32(k0, k1, x0, x1)
+    return _u32(r0), _u32(r1)
 
 
 def uniform_01(k0, k1, c0, c1) -> torch.Tensor:
@@ -82,15 +121,20 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(r0, r1), dim=-1)
 
 
+def _bits_of(key: torch.Tensor, n: Optional[int]) -> torch.Tensor:
+    """:func:`random_bits` as int32 bits."""
+    if n is None:
+        r0, r1 = _threefry32(key[..., 0], key[..., 1], 0, 0)
+    else:
+        ctr = torch.arange(n, dtype=torch.int32, device=key.device)
+        r0, r1 = _threefry32(key[..., 0, None], key[..., 1, None], 0, ctr)
+    return r0 ^ r1
+
+
 def random_bits(key: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     """``jax.random.bits(key, (n,))`` per key (``[..., n]``), or the scalar
     draw (``[...]``, counter 0) when ``n`` is None."""
-    if n is None:
-        r0, r1 = threefry2x32(key[..., 0], key[..., 1], 0, 0)
-    else:
-        ctr = torch.arange(n, dtype=torch.int64, device=key.device)
-        r0, r1 = threefry2x32(key[..., 0, None], key[..., 1, None], 0, ctr)
-    return r0 ^ r1
+    return _u32(_bits_of(key, n))
 
 
 def uniform(key: torch.Tensor, n: Optional[int] = None,
@@ -98,13 +142,23 @@ def uniform(key: torch.Tensor, n: Optional[int] = None,
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` per key:
     23 mantissa bits into [1, 2), minus 1, scaled and clamped exactly as
     jax does it (separate multiply and add, never fused)."""
-    return uniform_from_bits(random_bits(key, n), minval, maxval)
+    return _scale(_mantissa(_bits_of(key, n)), minval, maxval)
+
+
+def _mantissa(bits: torch.Tensor) -> torch.Tensor:
+    """The top 23 of 32 random bits (int32 or int64) as a float32 in
+    [1, 2)."""
+    return (((bits >> 9) & 0x7FFFFF) | 0x3F800000).to(torch.int32) \
+        .view(torch.float32)
+
+
+def _scale(f: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    f = f - _f32(1.0)
+    lo, hi = _f32(minval), _f32(maxval)
+    return torch.maximum(lo.to(f.device), f * (hi - lo) + lo)
 
 
 def uniform_from_bits(bits: torch.Tensor, minval: float = 1e-12,
                       maxval: float = 1.0) -> torch.Tensor:
     """The float32 map of :func:`uniform` applied to given random bits."""
-    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    f = f - _f32(1.0)
-    lo, hi = _f32(minval), _f32(maxval)
-    return torch.maximum(lo.to(f.device), f * (hi - lo) + lo)
+    return _scale(_mantissa(bits), minval, maxval)

@@ -1,0 +1,307 @@
+#!/usr/bin/env python3
+"""The plain reservoir scan (K4's reservoir regime and plain K1) on the
+lanes the main path hands it, on the card, beside the same kernels built
+from other trees.
+
+    PYTHONPATH=src python tools/time_reservoir.py [--nodes N] [--reps 3] \
+        [--other DIR ...] [--no-regimes] [--cell NAME ...]
+
+Builds the graph ``chip_smoke.py`` runs (soc-LiveJournal1 scale by
+default) and times, with CUDA events, on the cells of the smoke:
+
+* ``k4_deepwalk_1`` / ``k4_deepwalk_16``: K4's reservoir regime on every
+  deepwalk walker at its mid-walk state (``chip_smoke.MID_STEP``), one
+  step and a 16-step launch;
+* ``k4_ppr_nibble_16``: the hooked instance on ppr_nibble, 16 steps;
+* ``k4_<program>_<regime>``: K4's other regimes on deepwalk and
+  ppr_nibble, 16 steps, as the smoke times them (their scans are the
+  eRJS fallbacks and stale rows);
+* ``k1_staged_ervs``: plain K1 on the live lanes of the staged ``ervs``
+  method on deepwalk; ``k1_random``: on the reservoir lanes of node2vec
+  under the ``random`` selector; ``k1_adaptive_node2vec``: on adaptive
+  node2vec's plain reservoir lanes (as ``chip_smoke.main_path_split``
+  takes them).
+
+Each cell's bound is the smoke's (``chip_smoke.pipe_bound``).  With
+``--other DIR`` (a checkout or a ``git archive`` of another commit;
+repeatable) it builds that tree's kernels with that tree's own
+``kernels/build.py`` and runs them on the same inputs through this tree's
+wrappers, in turns (the others, this tree twice, the others in reverse),
+and fails (after every cell ran) unless every tree gives the same next
+nodes, emitted nodes, flag words and end state (program state included)
+on every walker.  Unless
+``--no-regimes``, it also holds the trees' scans equal where K4's other
+regimes run them, on deepwalk and ppr_nibble: the rejection regime with
+every trial budget at 1 (the fallbacks) and both precomp regimes with
+every third row stale, 16 steps each.  ``--cell`` (repeatable) times
+only the cells named; ``--no-regimes`` skips those comparisons but not
+the regime cells named.  Prints the card's name, power
+limit and SM clock first, and each tree's scan edge loops from its SASS.
+Needs an NVIDIA GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import importlib.util
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402  (the cells' one definition)
+
+STEPS = 16
+
+
+def other_libs(tree: Path) -> dict:
+    """``tree``'s kernels, built by its own ``kernels/build.py``: its
+    libraries by source stem, and their paths."""
+    spec = importlib.util.spec_from_file_location(
+        f"build_{abs(hash(str(tree)))}",
+        tree / "src/repro_torch/kernels/build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build_all(), {s: mod._lib_path(f"{s}.cu")
+                             for s in ("ervs", "megastep")}
+
+
+@contextlib.contextmanager
+def running(libs: dict):
+    """This tree's wrappers launching ``libs``' ervs and megastep."""
+    from repro_torch.kernels import build
+
+    mine = {s: build._LIBS[s] for s in ("ervs", "megastep")}
+    build._LIBS.update({s: libs[s] for s in mine})
+    try:
+        yield
+    finally:
+        build._LIBS.update(mine)
+
+
+def same(a, b) -> bool:
+    """Whether two results (a tensor, or K4's (state, emitted, flags))
+    are equal bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    (s1, e1, f1), (s2, e2, f2) = a, b
+    ok = torch.equal(e1, e2) and torch.equal(f1, f2)
+    for f in ("cur", "prev", "step", "alive"):
+        ok = ok and torch.equal(getattr(s1, f), getattr(s2, f))
+    for x, y in zip(s1.wstate or (), s2.wstate or ()):
+        ok = ok and torch.equal(x, y)
+    return ok
+
+
+#: (cell, tree) pairs that differed from this tree; the run fails at its
+#: end if any did
+DIFFERED = []
+
+
+def compare(label: str, fn, trees) -> None:
+    """Note every tree whose ``fn()`` differs from this tree's."""
+    want = fn()
+    for tree, libs in trees:
+        with running(libs):
+            got = fn()
+        if not same(got, want):
+            DIFFERED.append((label, tree))
+            print(f"[reservoir] {label}: {tree} DIFFERS from this tree",
+                  flush=True)
+    print(f"[reservoir] {label}: {len(trees) + 1} trees compared on every "
+          f"walker, {sum(c == label for c, _ in DIFFERED)} differ",
+          flush=True)
+
+
+CELLS = ("k4_deepwalk_1", "k4_deepwalk_16", "k4_ppr_nibble_16",
+         "k1_staged_ervs", "k1_random", "k1_adaptive_node2vec",
+         *(f"k4_{p}_{k}" for p in chip_smoke.FUSED_PROGRAMS
+           for k in ("rejection", "precomp_its", "precomp_alias")))
+#: the cells to time (``--cell``)
+WANT = set(CELLS)
+
+
+def timed(label: str, fn, trees, reps: int, b_ms: float, b_by: str) -> None:
+    """``compare``, then time each tree's ``fn`` in turns."""
+    if label not in WANT:
+        return
+    compare(label, fn, trees)
+    print(f"[reservoir] {label}: bound {b_ms:.4f} ms ({b_by})", flush=True)
+    order = trees + [("this", None)] * 2 + trees[::-1]
+    for tree, libs in order:
+        ctx = running(libs) if libs else contextlib.nullcontext()
+        with ctx:
+            ms = chip_smoke.cuda_ms(fn, reps)
+        print(f"[reservoir] {label} {tree}: {ms:.4f} ms", flush=True)
+
+
+def k4_cells(g, eng, pname, trees, reps, regimes) -> None:
+    """K4's reservoir regime of ``pname`` (its fused ervs engine) from its
+    mid-walk state, and the scans of the other regimes."""
+    from repro_torch.kernels import megastep
+
+    p = eng["reservoir"].sampler_ctx.params
+    prog = eng["reservoir"].workload
+    state = chip_smoke.mid_walk_state(eng["reservoir"],
+                                      chip_smoke.MID_STEP[pname])
+    cfg = eng["reservoir"].config
+    base = dict(tile=cfg.tile, rjs_trials=cfg.rjs_trials,
+                rjs_max_rounds=cfg.rjs_max_rounds,
+                num_steps=chip_smoke.WALK_STEPS)
+    lengths = (1, STEPS) if pname == "deepwalk" else (STEPS,)
+    for T in lengths:
+        if f"k4_{pname}_{T}" not in WANT:
+            continue
+        fn = (lambda T=T: megastep.fused_epoch(
+            g, prog, p, state, kind="reservoir", epoch_len=T, **base))
+        got = fn()
+        b_ms, b_by = chip_smoke.pipe_bound(*chip_smoke.k4_reservoir_work(
+            eng["reservoir"], state, got[1], got[2]))
+        # a 16-step launch on deepwalk takes seconds: time it once a turn
+        timed(f"k4_{pname}_{T}", fn, trees, reps if T == 1 else 1, b_ms,
+              b_by)
+    for kind in ("rejection", "precomp_its", "precomp_alias"):
+        if kind not in eng:
+            continue
+        e = eng[kind]
+        if regimes:
+            args = dict(base, kind=kind, epoch_len=STEPS, bmax=e._fused_bmax,
+                        tables=e.precomp)
+            if kind == "rejection":
+                args.update(rjs_trials=1, rjs_max_rounds=1)
+            else:
+                args.update(tables=chip_smoke.stale_every_third(e.precomp))
+            what = ("every trial budget 1" if kind == "rejection"
+                    else "every third row stale")
+            t0 = time.perf_counter()
+            compare(f"k4_{pname}_{kind} ({what})",
+                    lambda: megastep.fused_epoch(g, prog, p, state, **args),
+                    trees)
+            print(f"[reservoir] k4_{pname}_{kind}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if f"k4_{pname}_{kind}" not in WANT:
+            continue
+        # the regime as the smoke times it: its own budget and tables
+        args = dict(base, kind=kind, epoch_len=STEPS, bmax=e._fused_bmax,
+                    tables=e.precomp)
+        fn = lambda: megastep.fused_epoch(g, prog, p, state, **args)
+        got = fn()
+        b_ms, b_by = chip_smoke.bound(*chip_smoke.k4_work(
+            e, state, got[1], got[2], args))
+        timed(f"k4_{pname}_{kind}", fn, trees, reps, b_ms, b_by)
+
+
+def k1_cell(label, pname, eng, mask_of, trees, reps) -> None:
+    """Plain K1 on the lanes ``mask_of(eng)`` gives, (state, keys, mask),
+    of registry program ``pname``."""
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.kernels.ervs import ervs_select, kernel_rule
+
+    g, prog = eng.graph, eng.workload
+    p = eng.sampler_ctx.params
+    state, keys_all, mask = mask_of(eng)
+    cur, prev, step, idx, ws = chip_smoke.lanes_of(state, mask)
+    keys = keys_all[idx].contiguous()
+    del state
+    fn = lambda: ervs_select(g, prog, p, cur, prev, step, keys,
+                             tile=eng.config.tile, wstate=ws)
+    d = degrees_of(g, cur).double()
+    b_ms, b_by = chip_smoke.pipe_bound(*chip_smoke.plain_scan_work(
+        g, prev, d, pname, kernel_rule(prog, p).weighted,
+        chip_smoke.ring_bytes(ws, pname), eng.config.tile))
+    print(f"[reservoir] {label}: {idx.numel()} lanes, {float(d.sum()):.0f} "
+          f"edges", flush=True)
+    timed(label, fn, trees, reps, b_ms, b_by)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--nodes", type=int, default=chip_smoke.LJ_NODES)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--other", type=Path, action="append", default=[])
+    ap.add_argument("--no-regimes", action="store_true")
+    ap.add_argument("--cell", action="append", choices=CELLS)
+    args = ap.parse_args()
+    if args.cell:
+        WANT.intersection_update(args.cell)
+
+    import torch
+    from repro_torch.core import EngineConfig, WalkEngine
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.graphs import power_law_graph
+    from repro_torch.kernels import build
+    from repro_torch.walks import make_workload
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
+                          "clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(),
+          flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor() as pool:  # every tree's nvcc runs at once
+        built = [pool.submit(other_libs, tree) for tree in args.other]
+        build.build_all()
+        built = [b.result() for b in built]
+    print(f"[reservoir] build: {time.perf_counter() - t0:.1f} s", flush=True)
+    trees = []
+    for tree, (libs, paths) in zip(args.other, built):
+        trees.append((str(tree), libs))
+        for stem, kernel in chip_smoke.SCAN_KERNELS:
+            for label, c in chip_smoke.scan_sass(paths[stem], kernel).items():
+                print(f"[sass] {tree} {kernel} {label}: {c}", flush=True)
+    for stem, kernel in chip_smoke.SCAN_KERNELS:
+        for label, c in chip_smoke.scan_sass(build._lib_path(f"{stem}.cu"),
+                                             kernel).items():
+            print(f"[sass] this {kernel} {label}: {c}", flush=True)
+    g = power_law_graph(args.nodes, chip_smoke.LJ_AVG_DEGREE,
+                        weight_dist="uniform", seed=0).to("cuda")
+
+    for pname in chip_smoke.FUSED_PROGRAMS:
+        if args.no_regimes and not any(c.startswith(f"k4_{pname}_")
+                                       for c in WANT):
+            continue
+        eng = {kind: WalkEngine(g, make_workload(pname), EngineConfig(
+            method=method, step_exec="fused"))
+            for kind, method in chip_smoke.FUSED_METHODS.items()
+            if kind == "reservoir" or not args.no_regimes
+            or f"k4_{pname}_{kind}" in WANT}
+        k4_cells(g, eng, pname, trees, args.reps, not args.no_regimes)
+        del eng
+
+    def live_lanes(eng):
+        state = chip_smoke.mid_walk_state(eng, chip_smoke.MID_STEP["deepwalk"])
+        live = (state.alive & (state.step < chip_smoke.WALK_STEPS)
+                & (degrees_of(eng.graph, state.cur) > 0))
+        return state, state.stream_keys(), live
+
+    def plain_lanes(eng):
+        split = chip_smoke.main_path_split(eng,
+                                           chip_smoke.MID_STEP["node2vec"])
+        return split.state, split.keys, split.lo
+
+    cells = (("k1_staged_ervs", "deepwalk", dict(method="ervs",
+                                                 step_exec="staged"),
+              live_lanes),
+             ("k1_random", "node2vec", dict(method="random"), plain_lanes),
+             ("k1_adaptive_node2vec", "node2vec",
+              dict(method="adaptive",
+                   jump_threshold=chip_smoke.JUMP_THRESHOLD), plain_lanes))
+    for label, pname, cfg, mask_of in cells:
+        if label not in WANT:
+            continue
+        eng = WalkEngine(g, make_workload(pname), EngineConfig(**cfg))
+        k1_cell(label, pname, eng, mask_of, trees, args.reps)
+        del eng
+    if DIFFERED:
+        raise SystemExit(f"[reservoir] trees differ: {DIFFERED}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
