@@ -148,8 +148,8 @@ PEAK_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # counts an FMA as two operations at 128 lanes an SM, so 122 / 67e12 is
 # ~61 instructions at the issue rate, near the SASS's 68 (THREEFRY_INSTR)
 # because a rotate is one SHF; but 41 of those run only on the integer
-# ALU, at half the lanes, which takes 34% longer.  The bounds of K4's
-# reservoir regime and of plain K1 count by pipe (pipe_bound); the others
+# ALU, at half the lanes, which takes 34% longer.  The bounds of K4
+# (every regime), plain K1 and K2 count by pipe (pipe_bound); the others
 # keep this count until theirs are recounted.
 THREEFRY_OPS = 122
 # the pipe counts, from the SASS of the scan's edge loop
@@ -434,11 +434,138 @@ def scan_ops(d, tile: int):
             + exact * EXACT_KEY_INSTR)
 
 
+
+
+def trial_ops(proposals: float, weighted: float):
+    """(integer-ALU instructions, instructions) of ``proposals`` eRJS
+    proposals (erjs.cuh), ``weighted`` of which had w > 0: per proposal
+    the offset's uniform (a fold of the step key and the folded key's
+    bits: two Threefry, the folded key's parity, the uniform's map) and
+    the test of w; per proposal with w > 0 the acceptance uniform, as
+    many again, and its compare.  A proposal with w <= 0 cannot accept
+    whatever its acceptance uniform, so the function needs none."""
+    alu = 2 * THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU
+    instr = 2 * THREEFRY_INSTR + PARITY_INSTR + UNIFORM_INSTR \
+        + KEY_COMPARE_INSTR
+    return (proposals + weighted) * alu, (proposals + weighted) * instr
+
+
+def weighted_proposals(eng, cur, prev, step, keys, used, wstate=None):
+    """[W] int64: how many of the ``used`` proposals each walker made had
+    w > 0 (walkers at ``cur``, ``prev``, ``step`` with step keys ``keys``
+    under ``eng``'s program), trial t re-made as ``erjs_step`` makes it:
+    offset min(int(u * deg), deg - 1) with u from counter 2t."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of, single_edge_ctx
+    from repro_torch.core.types import wstate_rows
+    from repro_torch.kernels.prng import fold_in, uniform
+
+    g, prog, params = eng.graph, eng.workload, eng.sampler_ctx.params
+    u = used.long()
+    deg = degrees_of(g, cur)
+    out = torch.zeros_like(u)
+    for t in range(int(u.max()) if u.numel() else 0):
+        i = (u > t).nonzero().squeeze(1)  # made trial t, so deg > 0
+        d = deg[i]
+        off = torch.minimum(
+            (uniform(fold_in(keys[i], 2 * t)) * d.to(torch.float32))
+            .to(torch.int64), d - 1)
+        ctx, valid = single_edge_ctx(g, prog, cur[i], prev[i], step[i], off)
+        w = prog.get_weight(ctx, params, wstate_rows(wstate, i))
+        out[i] += (valid & (w > 0)).long()
+    return out
+
+
+def trial_bytes(g, prev, used, weighted, pname: str, reads_h: bool):
+    """[W] float64 bytes the eRJS proposals of walkers with ``used``
+    proposals, ``weighted`` of them with w > 0, need: per proposal its
+    neighbour (4 B), h where the rule reads it (MetaPath: where the label
+    matches, w > 0), MetaPath's label, and for the second-order rules a
+    binary search of the previous node's row (4 B a probe)."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+
+    u = used.to(torch.float64)
+    per = 4.0 + (4.0 if pname.startswith("metapath") else 0.0)
+    if reads_h and not pname.startswith("metapath"):
+        per += 4.0
+    if pname in SECOND_ORDER:
+        per = per + 4.0 * probes(degrees_of(g, prev))
+    h = 4.0 * weighted.to(torch.float64) \
+        if reads_h and pname.startswith("metapath") else 0.0
+    return u * per + h
+
+
+def trial_note(pname: str) -> str:
+    """How a pipe bound of eRJS trials was counted, for its row."""
+    sms, hz = sm_rate()
+    alu, instr = trial_ops(1.0, 0.0)
+    h = ("4 B of label, h where the label matches"
+         if pname.startswith("metapath") else "h where the rule reads it")
+    probe = (", 4 B a probe of the previous node's row's binary search"
+             if pname in SECOND_ORDER else "")
+    return (f"per proposal made (the kernel's used) its neighbour (4 B), "
+            f"{h}{probe}, {alu:g} integer-ALU of {instr:g} instructions "
+            f"(two Threefry from the SASS, the folded key's parity, the "
+            f"uniform, the test of w), as much again per proposal with "
+            f"w > 0 (the acceptance uniform; counted by re-making each "
+            f"proposal); per walker step its inputs and the step key's "
+            f"parity; the ALU at {INT_ALU_LANES} and the issue at "
+            f"{ISSUE_LANES} lanes an SM a clock, {sms} SMs at "
+            f"{hz / 1e6:.0f} MHz (nvidia-smi clocks.max.sm)")
+
+
+def k2_work(eng, rjs, pname: str, weighted):
+    """(bytes, integer-ALU instructions, instructions) K2's function
+    needs on the eRJS lanes ``rjs`` of ``eng``'s main path (``rjs.got``:
+    K2's results there; ``weighted``: ``weighted_proposals`` there): each
+    walker's inputs and results (73 B) and its ring's bytes,
+    ``trial_bytes`` of its proposals, the operations of ``trial_ops`` and
+    the step key's parity a walker."""
+    from repro_torch.kernels.ervs import kernel_rule
+
+    _, prev, _, _, ws = rjs.lanes
+    used = rjs.got[2]
+    reads_h = kernel_rule(eng.workload, eng.sampler_ctx.params).weighted
+    nbytes = float((73.0 + ring_bytes(ws, pname) + trial_bytes(
+        eng.graph, prev, used, weighted, pname, reads_h)).sum())
+    alu, instr = trial_ops(float(used.sum()), float(weighted.sum()))
+    n = float(used.numel())
+    return nbytes, alu + n * PARITY_ALU, instr + n * PARITY_INSTR
+
+
+def trial_stats(used, fallback, trials: int, weighted) -> dict:
+    """What the eRJS trials did on walkers with ``used`` proposals,
+    ``weighted`` of them with w > 0, and ``fallback`` flags: those pending
+    after round 0 (more proposals than ``trials``), the fallbacks, the
+    mean proposals and proposals with w > 0 a walker."""
+    n = max(used.numel(), 1)
+    return dict(pending=int((used > trials).sum()),
+                fallbacks=int(fallback.sum()),
+                mean_used=float(used.double().sum()) / n,
+                mean_weighted=float(weighted.double().sum()) / n)
+
+
+
+def trials_text(r: dict) -> str:
+    """``trial_stats`` of a row, for its log line ('' without them)."""
+    if "pending" not in r:
+        return ""
+    return (f"; trials: {r['pending']} walkers pending after round 0, "
+            f"{r['fallbacks']} fallbacks, {r['mean_used']:.4f} proposals "
+            f"a walker, {r['mean_weighted']:.4f} of them with w > 0")
+
+
 # ------------------------------------------------------------------ SASS
 SCAN_RULES = {"0": "H", "1": "MetaPath", "2": "Dist", "3": "Visited"}
 # (library, kernel) whose scan loops the build phase logs: K4's reservoir
 # instance without hooks (plain K1 inlines its eight loops)
-SCAN_KERNELS = (("megastep", "fused_epoch_kernelILi0ELi0E"),)
+SCAN_KERNELS = (("megastep", "fused_epoch_kernelILi0EE"),)
+# (library, kernel) whose eRJS trial loops the build phase logs: K2's
+# round 0 and later rounds, and K4's rejection instance without hooks
+TRIAL_KERNELS = (("erjs", "erjs_round0_kernel"),
+                 ("erjs", "erjs_rounds_kernel"),
+                 ("megastep", "fused_epoch_lanesILi1ELi0E"))
 
 
 def _cuobjdump(lib, what: str) -> str:
@@ -483,11 +610,12 @@ def sass_functions(lib, kernel: str) -> dict:
     return out
 
 
-def hot_loop(code) -> dict:
-    """Opcode counts of the smallest loop (a backward branch's target to
-    the branch) of ``code`` that holds a Threefry (>= 20 SHF): the scan's
-    edge loop, with the blocks laid out inside it that run rarely (a new
-    tile's key, the exact key).  {} when there is none."""
+def threefry_loops(code) -> list:
+    """Opcode counts of each innermost loop (a backward branch's target to
+    the branch) of ``code`` that holds a Threefry (>= 20 SHF), in address
+    order: a loop that holds another such loop is left out.  The blocks
+    laid out inside a loop that run rarely (a new tile's key, the exact
+    key, a rule's own code) count with it."""
     from collections import Counter
 
     ops = [(a, re.sub(r"^@!?U?P\w+\s+", "", ins)) for a, ins in code]
@@ -495,7 +623,7 @@ def hot_loop(code) -> dict:
     # votes) branch back into the body: they close no loop
     ends = [a for a, ins in ops if ins.startswith(("RET", "EXIT"))]
     last = ends[-1] if ends else float("inf")
-    best = None
+    found = []
     for i, (a, ins) in enumerate(ops):
         m = re.match(r"BRA\S*\s.*?(0x[0-9a-f]+)\s*$", ins)
         if not m or int(m.group(1), 16) >= a or a > last:
@@ -503,21 +631,28 @@ def hot_loop(code) -> dict:
         lo = int(m.group(1), 16)
         body = [x for b, x in ops[:i + 1] if b >= lo]
         fam = Counter(x.split()[0].split(".")[0] for x in body)
-        if fam["SHF"] >= 20 and (best is None or len(body) < best[0]):
-            best = (len(body), fam)
-    if best is None:
-        return {}
-    fam = best[1]
-    return dict(instructions=best[0], alu=sum(fam[k] for k in SASS_ALU),
-                imad=fam["IMAD"] + fam["VIADD"],
-                float=sum(fam[k] for k in ("FFMA", "FADD", "FMUL", "FSETP",
-                                           "FMNMX", "FSEL")),
-                mufu=fam["MUFU"], loads=sum(fam[k] for k in ("LDG", "LD",
-                                                             "LDL", "LDS")),
-                warp=sum(fam[k] for k in ("SHFL", "VOTE", "WARPSYNC")),
-                branch=sum(fam[k] for k in ("BRA", "BSSY", "BSYNC", "CALL",
-                                            "RET")),
-                shf=fam["SHF"], lop3=fam["LOP3"], iadd3=fam["IADD3"])
+        if fam["SHF"] >= 20:
+            found.append((lo, a, len(body), fam))
+    inner = [f for f in found if not any(
+        f[0] <= o[0] and o[1] <= f[1] and o[:2] != f[:2] for o in found)]
+    return [dict(instructions=n, alu=sum(fam[k] for k in SASS_ALU),
+                 imad=fam["IMAD"] + fam["VIADD"],
+                 float=sum(fam[k] for k in ("FFMA", "FADD", "FMUL", "FSETP",
+                                            "FMNMX", "FSEL")),
+                 mufu=fam["MUFU"],
+                 loads=sum(fam[k] for k in ("LDG", "LD", "LDL", "LDS")),
+                 warp=sum(fam[k] for k in ("SHFL", "VOTE", "WARPSYNC")),
+                 branch=sum(fam[k] for k in ("BRA", "BSSY", "BSYNC", "CALL",
+                                             "RET")),
+                 shf=fam["SHF"], lop3=fam["LOP3"], iadd3=fam["IADD3"])
+            for _, _, n, fam in sorted(inner)]
+
+
+def hot_loop(code) -> dict:
+    """The smallest of ``threefry_loops``: the scan's edge loop.  {} when
+    there is none."""
+    loops = threefry_loops(code)
+    return min(loops, key=lambda c: c["instructions"]) if loops else {}
 
 
 def scan_sass(lib, kernel: str) -> dict:
@@ -537,6 +672,14 @@ def scan_sass(lib, kernel: str) -> dict:
         if loop:
             out[label] = loop
     return out
+
+
+def trial_sass(lib, kernel: str) -> list:
+    """``threefry_loops`` of the first kernel of ``lib`` named with
+    ``kernel``: the eRJS trial loops (round 0 on a lane, then the warp's
+    passes) with the code inlined in them."""
+    funcs = sass_functions(lib, kernel)
+    return threefry_loops(next(iter(funcs.values()))) if funcs else []
 
 
 def ptxas_lines(log_text: str):
@@ -1228,15 +1371,6 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
 
     rows = {}
 
-    def edge_bytes(g, prev, pname):
-        """Bytes one scanned or proposed edge reads: neighbour and h, the
-        label for MetaPath, the previous row's binary search for the
-        second-order rules."""
-        b = 8.0 + (4.0 if pname.startswith("metapath") else 0.0)
-        if pname in SECOND_ORDER:
-            return b + 4.0 * probes(degrees_of(g, prev))
-        return b
-
     def time_at(pname, eng, step_at: int, names) -> None:
         """Time the kernels in ``names`` on the lanes of ``pname``'s
         main-path state after ``step_at`` steps (those with lanes)."""
@@ -1258,15 +1392,13 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                     fail(f"erjs_select [{pname}] at main-path shapes: "
                          f"{what} differs from erjs_step on "
                          f"{int((x != y).sum())} of {idx.numel()} lanes")
-            trials = got[2].to(torch.float64)
-            nbytes = float((73.0 + ring_bytes(ws, pname)
-                            + trials * edge_bytes(g, prev, pname)).sum())
-            ops = float(trials.sum()) * (4 * THREEFRY_OPS + 30)
-            b_ms, b_by = bound(nbytes, ops)
+            w_pos = weighted_proposals(eng, cur, prev, step, keys, got[2], ws)
+            b_ms, b_by = pipe_bound(*k2_work(eng, rjs, pname, w_pos))
             rows["erjs_select", pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 plain_ms=plain_ms, max_abs_err=0, mismatches=0,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, bound_note=trial_note(pname),
+                **trial_stats(got[2], got[1], cfg.rjs_trials, w_pos))
         for jump, mask in ((False, split.lo), (True, split.hi)):
             name = "ervs_jump_select" if jump else "ervs_select"
             if name not in names or not bool(mask.any()):
@@ -1375,71 +1507,126 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
             f"{r['step']}, kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms (on {r.get('checked', r['lanes'])} "
             f"lanes), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['mismatches']} differences"
+            f"{r['mismatches']} differences" + trials_text(r)
             + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
                else ""))
     return rows
 
 
-def k4_work(eng, state0, emitted, flags, args: dict):
-    """(bytes, operations) a K4 launch from ``state0`` must move and do on
-    this run's data: each input read once and each output written once,
-    plus per live step the degree, the step key and the regime's reads
-    (scanned edges, eRJS trials, CDF probes, alias columns); a hooked
-    program's state comes in and goes out once (4 B per lane each way)
-    and its hooks cost a few operations per live step."""
+def k4_work(eng, state0, emitted, flags, args: dict, stats=None):
+    """(bytes, integer-ALU instructions, instructions) a K4 launch of a
+    scalar regime from ``state0`` needs on this run's data: each input
+    read once and each output written once, plus per live step the
+    degree and the step key (a Threefry and ~20 instructions, 4 more for
+    hooks; the parity of its key, the walker's seed, once a walker) and
+    the regime's work: eRJS proposals (``trial_ops``, ``trial_bytes``; 4 B
+    of bound), CDF probes or alias columns and their uniform, and the
+    least work of the row scans of fallbacks and stale rows
+    (``scan_ops``, 8 B an edge); a hooked program's state comes in and
+    goes out once (4 B per lane each way).  With a ``stats`` dict, the
+    rejection regime adds there what its trials did (``trial_stats``,
+    summed over the steps; the mean over live walker steps)."""
     import torch
     from repro_torch.core.ctxutil import degrees_of
     from repro_torch.core.types import StepStats as S
     from repro_torch.kernels.erjs import erjs_select
+    from repro_torch.kernels.ervs import kernel_rule
     from repro_torch.kernels.prng import fold_in
 
     g, kind = eng.graph, args["kind"]
+    reads_h = kernel_rule(eng.workload, eng.sampler_ctx.params).weighted
     W, T = emitted.shape
     hooked = eng.workload.has_hooks
     nbytes = W * (41.0 + 25.0 + 8.0 * T + (8.0 if hooked else 0.0))
-    ops = 0.0
+    alu = instr = 0.0
+    tally = dict(pending=0, fallbacks=0, used=0.0, weighted=0.0, steps=0)
     cur, prev, step = state0.cur, state0.prev, state0.step
+    stepped = torch.zeros(W, dtype=torch.bool, device=cur.device)
     for t in range(T):
         f = flags[:, t]
         bit = lambda b: ((f >> b) & 1).bool()
         live = bit(S.LIVE)
+        stepped |= live
         deg = degrees_of(g, cur).to(torch.float64)
         n_live = float(live.sum())
         nbytes += 8.0 * n_live
-        ops += n_live * (THREEFRY_OPS + 20 + (4 if hooked else 0))
-        scan = live if kind == "reservoir" else bit(S.FALLBACK) | bit(
-            S.STALE)
-        edges = float(deg[scan].sum())
-        nbytes += 8.0 * edges
-        ops += edges * (THREEFRY_OPS + 40)
+        alu += n_live * THREEFRY_ALU
+        instr += n_live * (THREEFRY_INSTR + 20 + (4 if hooked else 0))
+        scan = bit(S.FALLBACK) | bit(S.STALE)
+        nbytes += 8.0 * float(deg[scan].sum())
+        e_alu, e_instr = scan_ops(deg[scan], eng.config.tile)
+        alu += e_alu
+        instr += e_instr
         if kind == "rejection":
             idx = live.nonzero().squeeze(1)
             c = cur[idx]
-            used = erjs_select(g, eng.workload, eng.sampler_ctx.params, c,
-                               prev[idx], step[idx],
-                               fold_in(state0.rng[idx], step[idx]),
-                               args["bmax"][c], trials=args["rjs_trials"],
-                               rounds=args["rjs_max_rounds"])[2]
-            trials = float(used.sum())
-            nbytes += 4.0 * n_live + 8.0 * trials
-            ops += trials * (4 * THREEFRY_OPS + 30)
-        elif kind.startswith("precomp"):
+            keys = fold_in(state0.rng[idx], step[idx])
+            _, fb, used = erjs_select(
+                g, eng.workload, eng.sampler_ctx.params, c, prev[idx],
+                step[idx], keys, args["bmax"][c], trials=args["rjs_trials"],
+                rounds=args["rjs_max_rounds"])
+            w_pos = weighted_proposals(eng, c, prev[idx], step[idx],
+                                       keys, used)
+            p_alu, p_instr = trial_ops(float(used.sum()), float(w_pos.sum()))
+            nbytes += 4.0 * n_live + float(trial_bytes(
+                g, prev[idx], used, w_pos, eng.workload.name, reads_h).sum())
+            alu += p_alu
+            instr += p_instr
+            st = trial_stats(used, fb, args["rjs_trials"], w_pos)
+            tally["pending"] += st["pending"]
+            tally["fallbacks"] += st["fallbacks"]
+            tally["used"] += float(used.double().sum())
+            tally["weighted"] += float(w_pos.double().sum())
+            tally["steps"] += int(used.numel())
+        else:
             pre = bit(S.PRECOMP)
             n_pre = float(pre.sum())
             nbytes += 5.0 * n_live + 4.0 * n_pre
-            if kind == "precomp_its":
-                pr = probes(degrees_of(g, cur[pre]))
-                nbytes += 4.0 * float(pr.sum())
-                ops += n_pre * (THREEFRY_OPS + 10) + 3.0 * float(pr.sum())
-            else:
+            if kind == "precomp_its":  # uniform_01, then the search
+                pr = float(probes(degrees_of(g, cur[pre])).sum())
+                nbytes += 4.0 * pr
+                alu += n_pre * (THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU) + pr
+                instr += n_pre * (THREEFRY_INSTR + PARITY_INSTR
+                                  + UNIFORM_INSTR) + 3.0 * pr
+            else:  # uniform_pair_01, the column and its alias
                 nbytes += 8.0 * n_pre
-                ops += n_pre * (THREEFRY_OPS + 10)
+                alu += n_pre * (THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU)
+                instr += n_pre * (THREEFRY_INSTR + PARITY_INSTR
+                                  + 2 * UNIFORM_INSTR + 4)
         moved = emitted[:, t] >= 0
         prev = torch.where(moved, cur, prev)
         cur = torch.where(moved, emitted[:, t].long(), cur)
         step = step + moved.long()
-    return nbytes, ops
+    if stats is not None and kind == "rejection":
+        n = max(tally["steps"], 1)
+        stats.update(pending=tally["pending"], fallbacks=tally["fallbacks"],
+                     mean_used=tally["used"] / n,
+                     mean_weighted=tally["weighted"] / n)
+    n_walkers = float(stepped.sum())
+    return (nbytes, alu + n_walkers * PARITY_ALU,
+            instr + n_walkers * PARITY_INSTR)
+
+
+def k4_note(kind: str) -> str:
+    """How a pipe bound of a K4 scalar regime was counted, for its row."""
+    sms, hz = sm_rate()
+    alu, instr = trial_ops(1.0, 0.0)
+    what = {"rejection": f"per proposal made (K2's used on the same steps) "
+                         f"its neighbour and h where the rule reads it, "
+                         f"{alu:g} integer-ALU of {instr:g} instructions, "
+                         f"as much again per proposal with w > 0, as K2's "
+                         f"bound counts them",
+            "precomp_its": "per table draw one Threefry, a parity and the "
+                           "uniform, per CDF probe 4 B, an integer-ALU and "
+                           "3 instructions",
+            "precomp_alias": "per table draw one Threefry, a parity, two "
+                             "uniforms, the column and its alias (12 B)"}
+    return (f"per live step 8 B, the step key (a Threefry and ~20 "
+            f"instructions); {what[kind]}; the scans of fallbacks and stale "
+            f"rows as the plain scan's ({THREEFRY_ALU + UNIFORM_ALU} "
+            f"integer-ALU an edge); the ALU at {INT_ALU_LANES} and the issue "
+            f"at {ISSUE_LANES} lanes an SM a clock, {sms} SMs at "
+            f"{hz / 1e6:.0f} MHz")
 
 
 def k4_reservoir_work(eng, state0, emitted, flags):
@@ -1523,7 +1710,10 @@ def time_fused(fused: dict, pname: str) -> dict:
             b_ms, b_by = pipe_bound(*k4_reservoir_work(eng, state, got[1],
                                                        got[2]))
         else:
-            b_ms, b_by = bound(*k4_work(eng, state, got[1], got[2], args))
+            stats = {}
+            b_ms, b_by = pipe_bound(*k4_work(eng, state, got[1], got[2], args,
+                                             stats))
+            extra = dict(bound_note=k4_note(kind), **stats)
         want, plain_ms = cuda_once(lambda: megastep.fused_epoch_plain(
             g, eng.workload, p, state, **args))
         n_bad, unexplained = k4_mismatches(eng, state, got, want, cfg.tile)
@@ -1570,7 +1760,7 @@ def time_fused(fused: dict, pname: str) -> dict:
             f"{r['step']}{steps}, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
-            f"walkers differ{extra}"
+            f"walkers differ{extra}" + trials_text(r)
             + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
                else ""))
     return rows
@@ -2110,7 +2300,7 @@ def main() -> int:
         f"sources")
     for f in sorted(build.build_dir().glob("*.log")):
         # per kernel instance and non-inlined function (its mangled name
-        # carries the template arguments, e.g. fused_epoch_kernelILi2ELi1E
+        # carries the template arguments, e.g. fused_epoch_lanesILi2ELi1E
         # = KIND 2, HOOK 1; scan_row_callILi0ELb1E = rule class 0, weighted):
         # registers, and the spill line of its function properties
         for name, what in ptxas_lines(f.read_text()):
@@ -2121,6 +2311,10 @@ def main() -> int:
         for label, c in scan_sass(build._lib_path(f"{stem}.cu"),
                                   kernel).items():
             log(f"sass {kernel} {label}: edge loop {c}")
+    for stem, kernel in TRIAL_KERNELS:
+        for i, c in enumerate(trial_sass(build._lib_path(f"{stem}.cu"),
+                                         kernel)):
+            log(f"sass {kernel}: trial loop {i} {c}")
 
     # 1b. LM serving at full width
     lm_rows = lm_phase(torch.device("cuda"), LM_TIMING_REPS)
@@ -2226,7 +2420,8 @@ def main() -> int:
             "lanes": r["lanes"], "step": r["step"],
             "mismatches": r["mismatches"],
             **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms",
-                                 "checked", "bound_note") if k in r}})
+                                 "checked", "bound_note", "pending",
+                                 "fallbacks", "mean_used") if k in r}})
     for (name, label), n in ops_launches.items():
         r = ops_rows[name, label]
         src, replaces = SOURCES[name]

@@ -116,7 +116,7 @@ _SIGNATURES = {
     "ervs": [("repro_ervs_select",
               [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P, _P])],
     "erjs": [("repro_erjs_select",
-              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 4)],
+              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 5)],
     "its": [("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
             ("repro_its_search_aligned", [_P] * 5 + [_I, _L, _P, _P])],
     "alias": [("repro_alias_pick", [_P, _P, _P, _P, _P, _P, _I, _P, _P]),

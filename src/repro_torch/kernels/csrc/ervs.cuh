@@ -71,8 +71,6 @@
 
 namespace repro {
 
-constexpr unsigned kFullWarp = 0xffffffffu;
-
 struct Best {
   float key;
   int32_t idx;  // offset (plain) or lane (jump); INT32_MAX = none

@@ -17,6 +17,8 @@
 
 namespace repro {
 
+constexpr unsigned kFullWarp = 0xffffffffu;
+
 constexpr int PROGRAM_DEEPWALK = 0;
 constexpr int PROGRAM_NODE2VEC = 1;
 constexpr int PROGRAM_METAPATH = 2;

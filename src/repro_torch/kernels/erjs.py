@@ -40,13 +40,15 @@ def erjs_select(graph, program, params, cur, prev, step, keys, bound, *,
         return out, fallback, used
     lib = build.library("erjs")
     rs = rule.as_struct()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the walkers left after round 0, listed for the later rounds' launch
+    todo = build.scratch("erjs.todo", dev, stream, n + 1, torch.int32)
     err = lib.repro_erjs_select(
         graph.indptr.data_ptr(), graph.indices.data_ptr(),
         graph.h.data_ptr(), graph.labels.data_ptr(), ctypes.byref(rs),
         cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring,
         keys.data_ptr(), bound.data_ptr(), n, trials, rounds, out.data_ptr(),
-        fallback.data_ptr(), used.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        fallback.data_ptr(), used.data_ptr(), todo.data_ptr(), stream)
     build.check(err, "erjs_select")
     build.LAUNCHES["erjs_select"] += 1
     return out, fallback, used

@@ -194,3 +194,169 @@ def scan_walkers(indptr, indices, nodes, per: int, seed: int):
             prev[i] = nodes[rng.integers(len(nodes))]
     step = rng.integers(0, 80, cur.size).astype(np.int64)
     return cur, prev, step, random_keys(cur.size, seed)
+
+
+#: (trials, rounds) budgets of the eRJS trial tests
+ERJS_BUDGETS = ((1, 1), (2, 3), (3, 5), (8, 16), (40, 2))
+#: one program of each device rule (``kernels/rules.py``)
+ERJS_PROGRAMS = ("deepwalk", "node2vec", "metapath", "2ndpr",
+                 "visited_avoiding", "ppr_nibble")
+#: row lengths of :func:`erjs_rows_graph` with ordinary weights
+ERJS_ROW_LENGTHS = (1, 2, 3, 7, 31, 32, 33, 200, 1500)
+#: trials of the pool every walker set is drawn from (the largest budget)
+ERJS_POOL_TRIALS = 128
+#: walkers of the pool, and of its random part a walker set carries
+ERJS_POOL, ERJS_EXTRA = 6144, 40
+
+
+def erjs_first_accepts(trials: int, rounds: int):
+    """First accepting trials a walker set must hold: the first trial, the
+    last and first of a round boundary (trials - 1, trials), 31 and 32,
+    the last and first of the warp's first 32-trial pass after round 0
+    (trials + 31, trials + 32), and the last trial of the budget."""
+    budget = trials * rounds
+    return sorted({t for t in (0, trials - 1, trials, 31, 32, trials + 31,
+                               trials + 32, budget - 1) if 0 <= t < budget})
+
+
+def erjs_rows_graph(seed: int = 21):
+    """Hand-made rows for the eRJS trials: (indptr, indices, h, labels,
+    rows, zero_row, empty_node) as numpy.  ``rows``: one node per length
+    of ``ERJS_ROW_LENGTHS``, h U(0.5, 5); ``zero_row``: 20 edges of h 0
+    (feasible, never accepts); ``empty_node``: no edge.  Every other node
+    holds 1 to 4 edges; rows are sorted, labels 0..4."""
+    rng = np.random.default_rng(seed)
+    num_nodes = 2000
+    deg = rng.integers(1, 5, num_nodes)
+    rows = np.arange(len(ERJS_ROW_LENGTHS)) * 7 + 3
+    deg[rows] = ERJS_ROW_LENGTHS
+    zero_row, empty_node = 1, 2
+    deg[zero_row], deg[empty_node] = 20, 0
+    indptr = np.zeros(num_nodes + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    indices = np.concatenate([np.sort(rng.choice(num_nodes, d, replace=False))
+                              for d in deg]).astype(np.int32)
+    h = rng.uniform(0.5, 5.0, indices.size).astype(np.float32)
+    h[indptr[zero_row]:indptr[zero_row + 1]] = 0.0
+    labels = rng.integers(0, 5, indices.size).astype(np.int32)
+    return (indptr.astype(np.int32), indices, h, labels, rows, zero_row,
+            empty_node)
+
+
+def _erjs_wstate(name, cur, indptr, indices, rng):
+    """numpy program state of walkers at ``cur``: a visited-avoiding ring
+    holding the first neighbours of the walker's row (trials onto them
+    weigh 0), a PPR-Nibble mass; None for the stateless rules."""
+    if name == "visited_avoiding":
+        ring = np.full((cur.size, 16), -1, np.int32)
+        for i, c in enumerate(cur):
+            row = indices[indptr[c]:indptr[c + 1]][:rng.integers(0, 9)]
+            ring[i, :row.size] = row
+        return ring
+    if name == "ppr_nibble":
+        return rng.random(cur.size).astype(np.float32)
+    return None
+
+
+_ERJS_POOLS = {}
+
+
+def erjs_pool(name: str):
+    """A pool of walkers on :func:`erjs_rows_graph` for program ``name``
+    and each one's first accepting trial under the port's plain
+    ``erjs_step`` within ``ERJS_POOL_TRIALS`` trials (-1: none).  Trial t
+    draws from counters 2t and 2t + 1 whatever the (trials, rounds)
+    split, so one run of one round serves every budget.  Bounds are
+    loose: 2 max(h) max(d(v), d(v')) / min(d(v), d(v')) of the row (above
+    every rule's weight) times 1, 2, 4, ... 512, so first accepts spread
+    over the budget."""
+    if name in _ERJS_POOLS:
+        return _ERJS_POOLS[name]
+    from repro_torch import interop
+    from repro_torch.core.erjs import erjs_step
+    from repro_torch.walks import make_workload
+
+    indptr, indices, h, labels, rows, _, _ = erjs_rows_graph()
+    rng = np.random.default_rng(22)
+    n = ERJS_POOL
+    cur = rows[rng.integers(0, rows.size, n)].astype(np.int64)
+    prev = np.full(n, -1, np.int64)
+    deg = np.diff(indptr.astype(np.int64))
+    for i, c in enumerate(cur):
+        pick = rng.random()
+        if pick < 0.6:
+            prev[i] = indices[indptr[c] + rng.integers(deg[c])]
+        elif pick < 0.8:
+            prev[i] = rows[rng.integers(rows.size)]
+    step = rng.integers(0, 80, n).astype(np.int64)
+    kd = random_keys(n, 23)
+    hmax = np.array([h[indptr[c]:indptr[c + 1]].max() for c in cur])
+    dv = np.maximum(deg[cur], 1)
+    dp = np.maximum(np.where(prev >= 0, deg[np.maximum(prev, 0)], 0), 1)
+    bound = (2.0 * hmax * np.maximum(dv, dp) / np.minimum(dv, dp)
+             * 2.0 ** rng.integers(0, 10, n)).astype(np.float32)
+    ws = _erjs_wstate(name, cur, indptr, indices, rng)
+    pw = make_workload(name)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.int64))
+    _, fb, used = erjs_step(
+        interop.graph_from_arrays(indptr, indices, h, labels), pw,
+        pw.params(), t(cur), t(prev), t(step), interop.keys_from_arrays(kd),
+        torch.from_numpy(bound), ERJS_POOL_TRIALS, 1,
+        wstate=interop.wstate_from_arrays(ws))
+    first = np.where(fb.numpy(), -1, used.numpy() - 1)
+    _ERJS_POOLS[name] = pool = dict(
+        arrays=(indptr, indices, h, labels), cur=cur, prev=prev, step=step,
+        kd=kd, bound=bound, ws=ws, first=first)
+    return pool
+
+
+def erjs_walkers(name: str, trials: int, rounds: int):
+    """The eRJS walker set of program ``name`` at a budget: numpy (cur,
+    prev, step, raw keys, bound, program state or None, each walker's
+    first accepting trial or -1, the proposals it makes, and its kind)
+    drawn from
+    :func:`erjs_pool`.  Two walkers for each trial of
+    ``erjs_first_accepts`` (fewer where the pool has fewer), four that
+    fall back (no accept within the budget), two on the row of zero
+    weights (they fall back too), infeasible ones: two on the node
+    without edges and two of bound 0; and ``ERJS_EXTRA`` random pool
+    walkers, so that warps mix all of them."""
+    pool = erjs_pool(name)
+    _, _, _, _, _, zero_row, empty_node = erjs_rows_graph()
+    budget = trials * rounds
+    first = pool["first"]
+    rng = np.random.default_rng(24)
+    pick, kind = [], []
+    for t in erjs_first_accepts(trials, rounds):
+        got = np.nonzero(first == t)[0][:2]
+        pick += got.tolist()
+        kind += [f"accept@{t}"] * got.size
+    late = np.nonzero((first < 0) | (first >= budget))[0][:4]
+    pick += late.tolist()
+    kind += ["fallback"] * late.size
+    extra = rng.choice(first.size, ERJS_EXTRA, replace=False)
+    pick += extra.tolist()
+    kind += ["random"] * ERJS_EXTRA
+    sel = np.array(pick)
+    cur, prev, step = (pool[k][sel].copy() for k in ("cur", "prev", "step"))
+    kd, bound = pool["kd"][sel].copy(), pool["bound"][sel].copy()
+    ws = None if pool["ws"] is None else pool["ws"][sel].copy()
+    acc = np.where((first[sel] >= 0) & (first[sel] < budget), first[sel], -1)
+    used = np.where(acc >= 0, acc + 1, budget)
+    # the special walkers take over copies of random ones
+    special = [("zero_row", zero_row, None), ("zero_row", zero_row, None),
+               ("no_edges", empty_node, None), ("no_edges", empty_node, None),
+               ("bound_0", None, 0.0), ("bound_0", None, 0.0)]
+    n0 = len(pick) - ERJS_EXTRA
+    for j, (what, node, b) in enumerate(special):
+        i = n0 + j
+        if node is not None:
+            cur[i] = node
+        if b is not None:
+            bound[i] = b
+        acc[i] = -1
+        used[i] = budget if what == "zero_row" else 0
+        kind[i] = what
+    return dict(cur=cur, prev=prev, step=step, kd=kd, bound=bound, ws=ws,
+                first=acc, used=used.astype(np.int32), kind=np.array(kind),
+                arrays=pool["arrays"])

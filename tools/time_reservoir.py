@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The plain reservoir scan (K4's reservoir regime and plain K1) on the
-lanes the main path hands it, on the card, beside the same kernels built
-from other trees.
+"""The plain reservoir scan (K4's reservoir regime and plain K1), K4's
+other regimes and K2 on the lanes the main path hands them, on the card,
+beside the same kernels built from other trees.
 
     PYTHONPATH=src python tools/time_reservoir.py [--nodes N] [--reps 3] \
         [--other DIR ...] [--no-regimes] [--cell NAME ...]
@@ -20,7 +20,11 @@ default) and times, with CUDA events, on the cells of the smoke:
   method on deepwalk; ``k1_random``: on the reservoir lanes of node2vec
   under the ``random`` selector; ``k1_adaptive_node2vec``: on adaptive
   node2vec's plain reservoir lanes (as ``chip_smoke.main_path_split``
-  takes them).
+  takes them);
+* ``k2_<program>``: K2 on the eRJS lanes of the six programs that run it
+  (``chip_smoke.main_path_split`` at ``chip_smoke.MID_STEP``), with what
+  its trials did (walkers pending after round 0, fallbacks, mean
+  proposals).
 
 Each cell's bound is the smoke's (``chip_smoke.pipe_bound``).  With
 ``--other DIR`` (a checkout or a ``git archive`` of another commit;
@@ -28,8 +32,8 @@ repeatable) it builds that tree's kernels with that tree's own
 ``kernels/build.py`` and runs them on the same inputs through this tree's
 wrappers, in turns (the others, this tree twice, the others in reverse),
 and fails (after every cell ran) unless every tree gives the same next
-nodes, emitted nodes, flag words and end state (program state included)
-on every walker.  Unless
+nodes (K2: and fallbacks and proposals made), emitted nodes, flag words
+and end state (program state included) on every walker.  Unless
 ``--no-regimes``, it also holds the trees' scans equal where K4's other
 regimes run them, on deepwalk and ppr_nibble: the rejection regime with
 every trial budget at 1 (the fallbacks) and both precomp regimes with
@@ -65,17 +69,45 @@ def other_libs(tree: Path) -> dict:
         tree / "src/repro_torch/kernels/build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.build_all(), {s: mod._lib_path(f"{s}.cu")
-                             for s in ("ervs", "megastep")}
+    return mod.build_all(), {s: mod._lib_path(f"{s}.cu") for s in SWAPPED}
+
+
+#: the libraries whose kernels the cells time
+SWAPPED = ("ervs", "erjs", "megastep")
+
+
+class OneLaunchErjs:
+    """The erjs library of a tree whose K2 took no scratch list, behind
+    this tree's entry point: the list's pointer is dropped.  It exists for
+    the trees from before K2's later rounds had a kernel of their own
+    (their ``repro_erjs_select`` has no ``todo`` argument): the parents of
+    the two-launch K2 that PERF.md's design steps were timed against.
+    Trees with the list need no shim."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def repro_erjs_select(self, *args):
+        return self.lib.repro_erjs_select(*args[:-2], args[-1])
+
+
+def as_this_tree(stem: str, lib):
+    """``lib`` callable as this tree's wrappers call library ``stem``."""
+    from repro_torch.kernels import build
+
+    args = len(build._SIGNATURES["erjs"][0][1])
+    if stem == "erjs" and len(lib.repro_erjs_select.argtypes) == args - 1:
+        return OneLaunchErjs(lib)
+    return lib
 
 
 @contextlib.contextmanager
 def running(libs: dict):
-    """This tree's wrappers launching ``libs``' ervs and megastep."""
+    """This tree's wrappers launching ``libs``' ervs, erjs and megastep."""
     from repro_torch.kernels import build
 
-    mine = {s: build._LIBS[s] for s in ("ervs", "megastep")}
-    build._LIBS.update({s: libs[s] for s in mine})
+    mine = {s: build._LIBS[s] for s in SWAPPED}
+    build._LIBS.update({s: as_this_tree(s, libs[s]) for s in mine})
     try:
         yield
     finally:
@@ -83,12 +115,14 @@ def running(libs: dict):
 
 
 def same(a, b) -> bool:
-    """Whether two results (a tensor, or K4's (state, emitted, flags))
-    are equal bit for bit."""
+    """Whether two results (a tensor, K2's (next, fallback, used), or K4's
+    (state, emitted, flags)) are equal bit for bit."""
     import torch
 
     if isinstance(a, torch.Tensor):
         return torch.equal(a, b)
+    if isinstance(a[0], torch.Tensor):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
     (s1, e1, f1), (s2, e2, f2) = a, b
     ok = torch.equal(e1, e2) and torch.equal(f1, f2)
     for f in ("cur", "prev", "step", "alive"):
@@ -118,10 +152,14 @@ def compare(label: str, fn, trees) -> None:
           flush=True)
 
 
+#: the programs whose main path runs K2
+K2_PROGRAMS = tuple(p for p, need in chip_smoke.ADAPTIVE_NEEDS.items()
+                    if "erjs_select" in need)
 CELLS = ("k4_deepwalk_1", "k4_deepwalk_16", "k4_ppr_nibble_16",
          "k1_staged_ervs", "k1_random", "k1_adaptive_node2vec",
          *(f"k4_{p}_{k}" for p in chip_smoke.FUSED_PROGRAMS
-           for k in ("rejection", "precomp_its", "precomp_alias")))
+           for k in ("rejection", "precomp_its", "precomp_alias")),
+         *(f"k2_{p}" for p in K2_PROGRAMS))
 #: the cells to time (``--cell``)
 WANT = set(CELLS)
 
@@ -191,8 +229,12 @@ def k4_cells(g, eng, pname, trees, reps, regimes) -> None:
                     tables=e.precomp)
         fn = lambda: megastep.fused_epoch(g, prog, p, state, **args)
         got = fn()
-        b_ms, b_by = chip_smoke.bound(*chip_smoke.k4_work(
-            e, state, got[1], got[2], args))
+        stats = {}
+        b_ms, b_by = chip_smoke.pipe_bound(*chip_smoke.k4_work(
+            e, state, got[1], got[2], args, stats))
+        if stats:
+            print(f"[reservoir] k4_{pname}_{kind}: {STEPS} steps"
+                  f"{chip_smoke.trials_text(stats)}", flush=True)
         timed(f"k4_{pname}_{kind}", fn, trees, reps, b_ms, b_by)
 
 
@@ -217,6 +259,26 @@ def k1_cell(label, pname, eng, mask_of, trees, reps) -> None:
     print(f"[reservoir] {label}: {idx.numel()} lanes, {float(d.sum()):.0f} "
           f"edges", flush=True)
     timed(label, fn, trees, reps, b_ms, b_by)
+
+
+def k2_cell(pname, eng, trees, reps) -> None:
+    """K2 on the eRJS lanes of ``pname``'s main-path state (its adaptive
+    engine ``eng``)."""
+    split = chip_smoke.main_path_split(eng, chip_smoke.MID_STEP[pname])
+    rjs = split.rjs
+    del split
+    if rjs is None:
+        raise SystemExit(f"[reservoir] k2_{pname}: no eRJS lanes")
+    cur, prev, step, idx, ws = rjs.lanes
+    w_pos = chip_smoke.weighted_proposals(eng, cur, prev, step, rjs.keys,
+                                          rjs.got[2], ws)
+    b_ms, b_by = chip_smoke.pipe_bound(*chip_smoke.k2_work(eng, rjs, pname,
+                                                           w_pos))
+    stats = chip_smoke.trial_stats(rjs.got[2], rjs.got[1],
+                                   eng.config.rjs_trials, w_pos)
+    print(f"[reservoir] k2_{pname}: {idx.numel()} lanes"
+          f"{chip_smoke.trials_text(stats)}", flush=True)
+    timed(f"k2_{pname}", rjs.run, trees, reps, b_ms, b_by)
 
 
 def main() -> int:
@@ -249,16 +311,22 @@ def main() -> int:
         build.build_all()
         built = [b.result() for b in built]
     print(f"[reservoir] build: {time.perf_counter() - t0:.1f} s", flush=True)
-    trees = []
-    for tree, (libs, paths) in zip(args.other, built):
-        trees.append((str(tree), libs))
+    trees = [(str(t), libs) for t, (libs, _) in zip(args.other, built)]
+    mine = {s: build._lib_path(f"{s}.cu") for s in SWAPPED}
+    for tree, paths in [(str(t), p) for t, (_, p) in zip(args.other, built)] \
+            + [("this", mine)]:
         for stem, kernel in chip_smoke.SCAN_KERNELS:
             for label, c in chip_smoke.scan_sass(paths[stem], kernel).items():
                 print(f"[sass] {tree} {kernel} {label}: {c}", flush=True)
-    for stem, kernel in chip_smoke.SCAN_KERNELS:
-        for label, c in chip_smoke.scan_sass(build._lib_path(f"{stem}.cu"),
-                                             kernel).items():
-            print(f"[sass] this {kernel} {label}: {c}", flush=True)
+        for stem, kernel in chip_smoke.TRIAL_KERNELS:
+            for i, c in enumerate(chip_smoke.trial_sass(paths[stem], kernel)):
+                print(f"[sass] {tree} {kernel} trial loop {i}: {c}",
+                      flush=True)
+        for stem in ("erjs", "megastep"):
+            for name, what in chip_smoke.ptxas_lines(
+                    paths[stem].with_suffix(".log").read_text()):
+                if "registers" in what and "scan_row" not in name:
+                    print(f"[ptxas] {tree} {name[:48]}: {what}", flush=True)
     g = power_law_graph(args.nodes, chip_smoke.LJ_AVG_DEGREE,
                         weight_dist="uniform", seed=0).to("cuda")
 
@@ -297,6 +365,13 @@ def main() -> int:
             continue
         eng = WalkEngine(g, make_workload(pname), EngineConfig(**cfg))
         k1_cell(label, pname, eng, mask_of, trees, args.reps)
+        del eng
+    for pname in K2_PROGRAMS:
+        if f"k2_{pname}" not in WANT:
+            continue
+        eng = WalkEngine(g, make_workload(pname), EngineConfig(
+            method="adaptive", jump_threshold=chip_smoke.JUMP_THRESHOLD))
+        k2_cell(pname, eng, trees, args.reps)
         del eng
     if DIFFERED:
         raise SystemExit(f"[reservoir] trees differ: {DIFFERED}")
