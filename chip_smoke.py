@@ -32,8 +32,11 @@ Phases (any failure exits non-zero and prints no result line):
              engine per fused regime (methods ervs, erjs, its_precomp,
              alias_precomp, ``step_exec="fused"``) for deepwalk and for
              ppr_nibble (the hooked program).  Each engine builds its own
-             tables; node statistics are computed once per label count
-             (the graph keeps them).
+             tables, and on the card the layouts its CUDA draws read
+             (node records, fence and pair tables); node statistics are
+             computed once per label count (the graph keeps them).  The
+             layouts' build is timed again on a copy of the deepwalk
+             alias engine's tables and logged.
 2b. ops    — the standalone kernel ops (``repro_torch.kernels.ops``) on
              the tile-aligned [R, 128] stream of the whole graph's weights
              (``graph_aligned_weights``, built on the host): K6
@@ -107,8 +110,13 @@ Phases (any failure exits non-zero and prints no result line):
              same state; for the reservoir regime, whose torch row scans
              take minutes per step here (~10^11 edges for deepwalk), the
              kernel and the plain version run one step of every walker
-             from that state, and the 16-step launch is timed beside it.  The build phase logs the SASS of K4's
-             reservoir edge loops by pipe (``scan_sass``).
+             from that state, and the 16-step launch is timed beside it.
+             K3, K5, their aligned entries (phase 2b) and K4's table
+             regimes are also timed cold, with L2 flushed before each
+             launch (``cold_ms``), as the main path meets them between
+             other kernels.  The build phase logs the SASS of K4's
+             reservoir edge loops by pipe (``scan_sass``) and of K3's and
+             K5's kernels (``draw_sass``).
 
 ``jump_threshold`` is lowered from the default 1024 to 8, the cost
 model's ``min_rjs_degree``: at uniform weights Eq. 11 sends every hub to
@@ -126,6 +134,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -149,8 +158,8 @@ PEAK_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # ~61 instructions at the issue rate, near the SASS's 68 (THREEFRY_INSTR)
 # because a rotate is one SHF; but 41 of those run only on the integer
 # ALU, at half the lanes, which takes 34% longer.  The bounds of K4
-# (every regime), plain K1 and K2 count by pipe (pipe_bound); the others
-# keep this count until theirs are recounted.
+# (every regime), plain K1, K2, K3 and K5 count by pipe (pipe_bound); the
+# others keep this count until theirs are recounted.
 THREEFRY_OPS = 122
 # the pipe counts, from the SASS of the scan's edge loop
 # (scan_row_call<kScanH, true> in K4; every run logs the loop): one
@@ -169,6 +178,15 @@ PARITY_INSTR, PARITY_ALU = 1, 1
 UNIFORM_INSTR, UNIFORM_ALU = 5, 1
 KEY_COMPARE_INSTR = 1
 EXACT_KEY_INSTR, EXACT_KEY_ALU = 42, 3
+# the table draws' own work beside their Threefry, parity and uniforms:
+# per CDF probe of K3's search the compare and the bounds' update (the
+# midpoint's add and shift, a select); per K3 walker the row's degree,
+# the target's multiply, the clip and the empty-row test; per K5 walker
+# the degree, the column (a conversion, a multiply, a conversion back,
+# a min), the compare and the select
+PROBE_INSTR, PROBE_ALU = 4, 3
+ITS_DRAW_INSTR, ITS_DRAW_ALU = 6, 3
+ALIAS_DRAW_INSTR, ALIAS_DRAW_ALU = 8, 3
 # lanes an SM a clock on the H100: the integer ALU's, and the issue's
 INT_ALU_LANES = 64
 ISSUE_LANES = 128
@@ -215,6 +233,13 @@ STAGED_NEEDS = {"ervs": ("ervs_select",), "erjs": ("erjs_select",),
                 "alias_precomp": ("alias_pick",)}
 # steps of the K4 launches checked (phase 3) and timed (phase 5)
 K4_EPOCH = 16
+# cold K4 launches of the table regimes timed in phase 5
+K4_COLD_REPS = 3
+# bytes a table draw's walker reads and writes beside its row's entries:
+# the engine's entries (cur and the result int64, the step key, the row's
+# bounds and total) and the aligned entries (row start, degree, total, the
+# seeds, the int32 result)
+ENGINE_DRAW_BYTES, ALIGNED_DRAW_BYTES = 44.0, 32.0
 # steps over which phase 5 holds K4's reservoir regime against its plain
 # version on every walker (~10^11 edges a step for deepwalk)
 K4_RESERVOIR_PLAIN_EPOCH = 1
@@ -333,6 +358,37 @@ def cuda_once(fn):
     return out, start.elapsed_time(end)
 
 
+# bytes written before each cold launch: over five times the H100's 50 MB
+# L2, so the launch finds none of its inputs there
+L2_FLUSH_BYTES = 256 << 20
+
+
+def cold_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` on the card with its L2 flushed
+    before each run (a write of ``L2_FLUSH_BYTES`` outside the timed
+    window), after one warm-up run: what a kernel takes on the main path,
+    where other kernels run between two of its launches."""
+    import torch
+
+    fn()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in marks:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / reps
+
+
+def cold_text(r: dict) -> str:
+    """A row's cold time, for its log line ('' without one)."""
+    return f" (cold {r['cold_ms']:.4f} ms)" if "cold_ms" in r else ""
+
+
 def device_ms(fn, reps: int):
     """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
     warm-up run: the time of the kernels it launched on the card, from
@@ -406,6 +462,74 @@ def pipe_note(per_edge_bytes: float) -> str:
             f"{INT_ALU_LANES} and the issue at {ISSUE_LANES} lanes an SM a "
             f"clock, {sms} SMs at {hz / 1e6:.0f} MHz (nvidia-smi "
             f"clocks.max.sm)")
+
+
+def its_work(deg, walker_bytes: float):
+    """(bytes, integer-ALU instructions, instructions) of the ITS draw of
+    walkers on rows of ``deg`` entries: per walker ``walker_bytes`` (its
+    inputs, its result and the row's bounds and total), one Threefry, its
+    key's parity, the uniform and the draw's own work; per CDF probe of a
+    binary search (``probes``) 4 B and its compare and update."""
+    pr = float(probes(deg).sum())
+    n = float(deg.numel())
+    return (n * walker_bytes + 4.0 * pr,
+            n * (THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU + ITS_DRAW_ALU)
+            + pr * PROBE_ALU,
+            n * (THREEFRY_INSTR + PARITY_INSTR + UNIFORM_INSTR
+                 + ITS_DRAW_INSTR) + pr * PROBE_INSTR)
+
+
+def alias_rejected(seeds, deg, off):
+    """Per walker: did the alias draw reject its column (and so need the
+    column's alias offset)?  ``seeds`` [n, 2] the draw's keys, ``deg``
+    the rows' degrees, ``off`` the offsets the draw picked."""
+    import torch
+    from repro_torch.core.precomp import ALIAS_SALT
+    from repro_torch.kernels.prng import uniform_pair_01
+
+    u1, _ = uniform_pair_01(seeds[:, 0], seeds[:, 1], 0, ALIAS_SALT)
+    d = deg.to(torch.int64)
+    col = torch.minimum((u1 * d.to(torch.float32)).to(torch.int64),
+                        (d - 1).clamp_min(0))
+    return (off >= 0) & (off != col)
+
+
+def alias_work(n: int, rejected: int, walker_bytes: float):
+    """(bytes, integer-ALU instructions, instructions) of the alias draw
+    of ``n`` walkers, ``rejected`` of which take their column's alias:
+    per walker ``walker_bytes`` (its inputs, its result and the row's
+    bounds and total), the column's keep probability (4 B), one Threefry,
+    its key's parity, two uniforms and the draw's own work; 4 B more per
+    rejected column."""
+    return (n * (walker_bytes + 4.0) + 4.0 * rejected,
+            n * (THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU
+                 + ALIAS_DRAW_ALU),
+            n * (THREEFRY_INSTR + PARITY_INSTR + 2 * UNIFORM_INSTR
+                 + ALIAS_DRAW_INSTR))
+
+
+def draw_note(kind: str, walker_bytes: float) -> str:
+    """How a pipe bound of a table draw was counted, for its row."""
+    sms, hz = sm_rate()
+    if kind == "its":
+        alu = THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU + ITS_DRAW_ALU
+        instr = THREEFRY_INSTR + PARITY_INSTR + UNIFORM_INSTR + ITS_DRAW_INSTR
+        what = (f"{alu} integer-ALU of {instr} instructions (Threefry from "
+                f"the SASS, the parity, the uniform, the target and the "
+                f"clip); per CDF probe of a binary search 4 B, {PROBE_ALU} "
+                f"integer-ALU of {PROBE_INSTR} instructions")
+    else:
+        alu = THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU + ALIAS_DRAW_ALU
+        instr = (THREEFRY_INSTR + PARITY_INSTR + 2 * UNIFORM_INSTR
+                 + ALIAS_DRAW_INSTR)
+        what = (f"the column's keep probability (4 B), {alu} integer-ALU of "
+                f"{instr} instructions (Threefry from the SASS, the parity, "
+                f"two uniforms, the column, the compare); 4 B of alias "
+                f"offset per rejected column")
+    return (f"per walker {walker_bytes:g} B of inputs, result and row "
+            f"bounds, {what}; the ALU at {INT_ALU_LANES} and the issue at "
+            f"{ISSUE_LANES} lanes an SM a clock, {sms} SMs at "
+            f"{hz / 1e6:.0f} MHz")
 
 
 def scan_ops(d, tile: int):
@@ -566,6 +690,8 @@ SCAN_KERNELS = (("megastep", "fused_epoch_kernelILi0EE"),)
 TRIAL_KERNELS = (("erjs", "erjs_round0_kernel"),
                  ("erjs", "erjs_rounds_kernel"),
                  ("megastep", "fused_epoch_lanesILi1ELi0E"))
+# the table draws' kernels (K3 and K5 on the CSR) whose code phase 1 logs
+DRAW_KERNELS = (("its", "its_kernel"), ("alias", "alias_kernel"))
 
 
 def _cuobjdump(lib, what: str) -> str:
@@ -671,6 +797,42 @@ def scan_sass(lib, kernel: str) -> dict:
         loop = hot_loop(code)
         if loop:
             out[label] = loop
+    return out
+
+
+def opcode_counts(body) -> dict:
+    """Instructions of ``body`` ([(address, instruction), ...]) by pipe
+    and kind, as ``threefry_loops`` counts them, and the 16 B loads."""
+    from collections import Counter
+
+    fam = Counter(re.sub(r"^@!?U?P\w+\s+", "", x).split()[0].split(".")[0]
+                  for _, x in body)
+    return dict(instructions=len(body), alu=sum(fam[k] for k in SASS_ALU),
+                imad=fam["IMAD"] + fam["VIADD"],
+                float=sum(fam[k] for k in ("FFMA", "FADD", "FMUL", "FSETP",
+                                           "FMNMX", "FSEL")),
+                loads=sum(fam[k] for k in ("LDG", "LD", "LDL", "LDS")),
+                loads_128=sum(1 for _, x in body
+                              if re.search(r"\bLDG\S*\.128\b", x)),
+                branch=sum(fam[k] for k in ("BRA", "BSSY", "BSYNC", "CALL",
+                                            "RET")))
+
+
+def draw_sass(lib, kernel: str) -> dict:
+    """Opcode counts (``opcode_counts``) of the first kernel of ``lib``
+    named with ``kernel``: all its code, and each of its loops (a backward
+    branch's target to the branch; K3's search is one)."""
+    funcs = sass_functions(lib, kernel)
+    if not funcs:
+        return {}
+    code = next(iter(funcs.values()))
+    out = {"kernel": opcode_counts(code)}
+    for i, (a, ins) in enumerate(code):
+        m = re.match(r"(?:@!?U?P\w+\s+)?BRA\S*\s.*?(0x[0-9a-f]+)\s*$", ins)
+        if m and int(m.group(1), 16) < a:
+            lo = int(m.group(1), 16)
+            out[f"loop {lo:#x}"] = opcode_counts(
+                [(b, x) for b, x in code[:i + 1] if b >= lo])
     return out
 
 
@@ -889,8 +1051,6 @@ def check_rules(adaptive: dict, seed: int) -> None:
 
 def stale_every_third(tables):
     """The same tables with every third row marked stale."""
-    import dataclasses
-
     invalid = tables.invalid.clone()
     invalid[::3] = True
     return dataclasses.replace(tables, invalid=invalid)
@@ -1479,14 +1639,13 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                 fail(f"its_search [{pname}] at main-path shapes: differs "
                      f"from its_offsets on {int((got != want).sum())} of "
                      f"{idx.numel()} lanes")
-            pr = probes(degrees_of(g, cur))
-            nbytes = float((44.0 + 4.0 * pr).sum())
-            ops = float((THREEFRY_OPS + 10 + 3 * pr).sum())
-            b_ms, b_by = bound(nbytes, ops)
+            b_ms, b_by = pipe_bound(*its_work(degrees_of(g, cur),
+                                              ENGINE_DRAW_BYTES))
             rows["its_search", pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
-                plain_ms=plain_ms, max_abs_err=0, mismatches=0,
-                bound_ms=b_ms, bound_by=b_by)
+                cold_ms=cold_ms(run, reps), plain_ms=plain_ms,
+                max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by,
+                bound_note=draw_note("its", ENGINE_DRAW_BYTES))
         del state, split
 
     for pname, eng in engines.items():
@@ -1504,7 +1663,7 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
             step_at += 1
     for (name, pname), r in rows.items():
         log(f"time {name} [{pname}]: {r['lanes']} lanes at step "
-            f"{r['step']}, kernel {r['ms']:.4f} ms, plain "
+            f"{r['step']}, kernel {r['ms']:.4f} ms{cold_text(r)}, plain "
             f"{r['plain_ms']:.4f} ms (on {r.get('checked', r['lanes'])} "
             f"lanes), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{r['mismatches']} differences" + trials_text(r)
@@ -1585,14 +1744,17 @@ def k4_work(eng, state0, emitted, flags, args: dict, stats=None):
             if kind == "precomp_its":  # uniform_01, then the search
                 pr = float(probes(degrees_of(g, cur[pre])).sum())
                 nbytes += 4.0 * pr
-                alu += n_pre * (THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU) + pr
+                alu += n_pre * (THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU
+                                + ITS_DRAW_ALU) + PROBE_ALU * pr
                 instr += n_pre * (THREEFRY_INSTR + PARITY_INSTR
-                                  + UNIFORM_INSTR) + 3.0 * pr
+                                  + UNIFORM_INSTR + ITS_DRAW_INSTR) \
+                    + PROBE_INSTR * pr
             else:  # uniform_pair_01, the column and its alias
                 nbytes += 8.0 * n_pre
-                alu += n_pre * (THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU)
+                alu += n_pre * (THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU
+                                + ALIAS_DRAW_ALU)
                 instr += n_pre * (THREEFRY_INSTR + PARITY_INSTR
-                                  + 2 * UNIFORM_INSTR + 4)
+                                  + 2 * UNIFORM_INSTR + ALIAS_DRAW_INSTR)
         moved = emitted[:, t] >= 0
         prev = torch.where(moved, cur, prev)
         cur = torch.where(moved, emitted[:, t].long(), cur)
@@ -1616,9 +1778,10 @@ def k4_note(kind: str) -> str:
                          f"{alu:g} integer-ALU of {instr:g} instructions, "
                          f"as much again per proposal with w > 0, as K2's "
                          f"bound counts them",
-            "precomp_its": "per table draw one Threefry, a parity and the "
-                           "uniform, per CDF probe 4 B, an integer-ALU and "
-                           "3 instructions",
+            "precomp_its": f"per table draw one Threefry, a parity, the "
+                           f"uniform and the draw's own work, per CDF probe "
+                           f"of a binary search 4 B, {PROBE_ALU} "
+                           f"integer-ALU of {PROBE_INSTR} instructions",
             "precomp_alias": "per table draw one Threefry, a parity, two "
                              "uniforms, the column and its alias (12 B)"}
     return (f"per live step 8 B, the step key (a Threefry and ~20 "
@@ -1678,6 +1841,7 @@ def time_fused(fused: dict, pname: str) -> dict:
     that comparison (kernel, plain and bound alike); its ``K4_EPOCH``-step
     launch is timed beside it (``epoch16_ms``)."""
     import torch
+    from repro_torch.core.ctxutil import degrees_of
     from repro_torch.core.precomp import alias_offsets
     from repro_torch.kernels import megastep
     from repro_torch.kernels.alias import alias_pick
@@ -1714,6 +1878,8 @@ def time_fused(fused: dict, pname: str) -> dict:
             b_ms, b_by = pipe_bound(*k4_work(eng, state, got[1], got[2], args,
                                              stats))
             extra = dict(bound_note=k4_note(kind), **stats)
+            if kind.startswith("precomp"):
+                extra.update(cold_ms=cold_ms(launch, K4_COLD_REPS))
         want, plain_ms = cuda_once(lambda: megastep.fused_epoch_plain(
             g, eng.workload, p, state, **args))
         n_bad, unexplained = k4_mismatches(eng, state, got, want, cfg.tile)
@@ -1745,11 +1911,15 @@ def time_fused(fused: dict, pname: str) -> dict:
                 fail(f"alias_pick [{pname}] at main-path shapes: differs "
                      f"from alias_offsets on {int((got != want).sum())} of "
                      f"{idx.numel()} lanes")
-            n = float(idx.numel())
-            b_ms, b_by = bound(52.0 * n, n * (THREEFRY_OPS + 10))
+            rejected = int(alias_rejected(keys, degrees_of(g, cur), got).sum())
+            b_ms, b_by = pipe_bound(*alias_work(idx.numel(), rejected,
+                                                ENGINE_DRAW_BYTES))
             rows["alias_pick", pname] = dict(
-                lanes=int(n), step=step_at, ms=ms, plain_ms=plain_ms,
-                max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by)
+                lanes=int(idx.numel()), step=step_at, ms=ms,
+                cold_ms=cold_ms(run, 5), plain_ms=plain_ms, max_abs_err=0,
+                mismatches=0, bound_ms=b_ms, bound_by=b_by,
+                bound_note=draw_note("alias", ENGINE_DRAW_BYTES),
+                rejected=rejected)
         del state
     for (name, pname), r in rows.items():
         steps = f" x {r['steps']} steps" if "steps" in r else ""
@@ -1758,7 +1928,8 @@ def time_fused(fused: dict, pname: str) -> dict:
                  if "epoch16_ms" in r else "")
         log(f"time {name} [{pname}]: {r['lanes']} live lanes at step "
             f"{r['step']}{steps}, kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['ms']:.4f} ms{cold_text(r)}, plain {r['plain_ms']:.4f} ms, "
+            f"bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
             f"walkers differ{extra}" + trials_text(r)
             + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
@@ -2156,25 +2327,27 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
             checked=n, accepted=int((want[0] >= 0).sum()),
             mean_trials=float(want[1].double().mean()))
         if label == "all_rows":
-            pr = probes(dg)
-            for name, run, plain, nb, nops in (
+            rejected = int(alias_rejected(
+                seeds, dg, out["alias_pick_aligned"][0]).sum())
+            for name, run, plain, work, kind in (
                     ("its_search_aligned",
                      lambda: ops.its_search(cdf2d, r0, dg, tot, seeds),
                      lambda: ref.its_search_ref(cdf2d, r0, dg, tot, seeds),
-                     float((32.0 + 4.0 * pr).sum()),
-                     float((THREEFRY_OPS + 10 + 3 * pr).sum())),
+                     its_work(dg, ALIGNED_DRAW_BYTES), "its"),
                     ("alias_pick_aligned",
                      lambda: ops.alias_pick(prob2d, alias2d, r0, dg, tot,
                                             seeds),
                      lambda: ref.alias_pick_ref(prob2d, alias2d, r0, dg, tot,
                                                 seeds),
-                     40.0 * n, n * (THREEFRY_OPS + 10.0))):
+                     alias_work(n, rejected, ALIGNED_DRAW_BYTES), "alias")):
                 want, plain_ms = cuda_once(plain)
                 check_equal(f"{name} [{label}]", out[name], (want,), n)
-                b_ms, b_by = bound(nb, nops)
+                b_ms, b_by = pipe_bound(*work)
                 rows[name, label] = dict(
-                    lanes=n, ms=cuda_ms(run, reps), plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, checked=n)
+                    lanes=n, ms=cuda_ms(run, reps),
+                    cold_ms=cold_ms(run, reps), plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, checked=n,
+                    bound_note=draw_note(kind, ALIGNED_DRAW_BYTES))
         # K6: every walker of (a); the largest rows and others of (b)
         got = out["ervs_block_select"]
         if label == "all_rows":
@@ -2201,9 +2374,11 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
             "mean_deg", "mean_draws", "mean_jumped", "mean_trials")
             if k in r)
         log(f"time {name} [{label}]: {r['lanes']} walkers, kernel "
-            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms (on "
-            f"{r['checked']} walkers, bitwise equal), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){extra}")
+            f"{r['ms']:.4f} ms{cold_text(r)}, plain {r['plain_ms']:.4f} ms "
+            f"(on {r['checked']} walkers, bitwise equal), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}){extra}"
+            + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
+               else ""))
     fig12a_on_card(dev)
     return rows, launches
 
@@ -2315,6 +2490,10 @@ def main() -> int:
         for i, c in enumerate(trial_sass(build._lib_path(f"{stem}.cu"),
                                          kernel)):
             log(f"sass {kernel}: trial loop {i} {c}")
+    for stem, kernel in DRAW_KERNELS:
+        for label, c in draw_sass(build._lib_path(f"{stem}.cu"),
+                                  kernel).items():
+            log(f"sass {kernel}: {label} {c}")
 
     # 1b. LM serving at full width
     lm_rows = lm_phase(torch.device("cuda"), LM_TIMING_REPS)
@@ -2346,6 +2525,22 @@ def main() -> int:
             log(f"engine {pname}/{method} (fused): "
                 f"{time.perf_counter() - t0:.1f} s, step_exec resolved "
                 f"{fused[pname][kind].step_exec_resolved!r}")
+
+    # the table layouts the CUDA draws read (each engine builds its own in
+    # its set-up), built again on a copy of the deepwalk alias engine's
+    # tables to time them
+    fresh = dataclasses.replace(fused["deepwalk"]["precomp_alias"].precomp)
+    t0 = time.perf_counter()
+    fence = fresh.its_fence
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pair = fresh.alias_pair
+    torch.cuda.synchronize()
+    log(f"draw layouts: fence table {fence.numel()} floats "
+        f"({fence.numel() * 4 / 1e6:.1f} MB) in {t1 - t0:.4f} s, pair table "
+        f"[{pair.shape[0]}, 2] int32 ({pair.numel() * 4 / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t1:.4f} s")
+    del fresh, fence, pair
 
     # 2b. the standalone ops on the aligned stream of the whole graph
     ops_rows, ops_launches = ops_phase(
@@ -2420,8 +2615,9 @@ def main() -> int:
             "lanes": r["lanes"], "step": r["step"],
             "mismatches": r["mismatches"],
             **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms",
-                                 "checked", "bound_note", "pending",
-                                 "fallbacks", "mean_used") if k in r}})
+                                 "cold_ms", "checked", "bound_note",
+                                 "rejected", "pending", "fallbacks",
+                                 "mean_used") if k in r}})
     for (name, label), n in ops_launches.items():
         r = ops_rows[name, label]
         src, replaces = SOURCES[name]
@@ -2431,7 +2627,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "lanes": r["lanes"],
-            "checked": r["checked"], "mismatches": 0})
+            "checked": r["checked"], "mismatches": 0,
+            **{k: r[k] for k in ("cold_ms", "bound_note") if k in r}})
     for (name, label), r in lm_rows.items():
         src, replaces = SOURCES[name]
         kernels.append({

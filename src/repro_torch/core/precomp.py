@@ -28,6 +28,7 @@ in from outside (``interop.tables_from_arrays``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -46,6 +47,9 @@ ALIAS_SALT = 0xA11A5
 # rows still in the lockstep Vose loop below which the rest finish one by
 # one on Python floats (a lockstep iteration costs ~20 numpy calls)
 _VOSE_TAIL_ROWS = 64
+# CDF entries a fence of ``PrecompTables.its_fence`` stands for: one 64 B
+# segment of float32 (``kFenceBlock`` in kernels/csrc/its.cuh)
+FENCE_BLOCK = 16
 
 
 def threefry_seeds(keys: torch.Tensor) -> torch.Tensor:
@@ -80,6 +84,41 @@ class PrecompTables:
     def frac_stale(self) -> torch.Tensor:
         """Fraction of rows currently invalidated (float32 scalar)."""
         return self.invalid.to(torch.float32).mean()
+
+    # The layouts the CUDA draws read (kernels/csrc/its.cuh, alias.cuh),
+    # built from the fields on first use, on their device, and kept: the
+    # tables are never edited in place, and one that changed would be a
+    # new object.  The plain versions read the fields.
+    @functools.cached_property
+    def its_fence(self) -> torch.Tensor:
+        """[E // FENCE_BLOCK] float32: the last CDF entry of each aligned
+        block of ``FENCE_BLOCK`` entries, the table K3 and K4's ITS
+        instance search before they read one block of the CDF."""
+        return self.cdf[FENCE_BLOCK - 1::FENCE_BLOCK].contiguous()
+
+    def draw_rows(self, indptr: torch.Tensor) -> torch.Tensor:
+        """[V, 4] int32: each node's row start, degree and total (its
+        float32 bits) and a 0, the 16 B record K3 and K5 read in place of
+        ``indptr`` and ``total``.  Built from the ``indptr`` of the graph
+        the tables belong to on first use, and kept (built again for
+        another ``indptr`` tensor)."""
+        kept = self.__dict__.get("_draw_rows")
+        if kept is None or kept[0] is not indptr:
+            start = indptr[:-1]
+            kept = (indptr, torch.stack(
+                (start, indptr[1:] - start, self.total.view(torch.int32),
+                 torch.zeros_like(start)), dim=1))
+            self.__dict__["_draw_rows"] = kept
+        return kept[1]
+
+    @functools.cached_property
+    def alias_pair(self) -> torch.Tensor:
+        """[E, 2] int32: each column's keep probability (its float32 bits)
+        beside its alias offset, the table K5 and K4's alias instance read
+        (one 8 B word a column)."""
+        self.require_alias()
+        return torch.stack((self.alias_prob.view(torch.int32),
+                            self.alias_off), dim=1)
 
 
 def edge_weights_static(graph: CSRGraph, program: WalkProgram,

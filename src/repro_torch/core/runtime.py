@@ -278,6 +278,7 @@ class WalkEngine:
                 self.graph, workload, params,
                 alias=self.sampler.caps.needs_alias)
                 if will_precomp else None))
+        self._build_draw_layouts(self.sampler_ctx.precomp)
         self._fused_epoch_fn = (self._build_fused_epoch()
                                 if self._fused_kind else None)
         self._fused_bmax = None
@@ -295,8 +296,20 @@ class WalkEngine:
         if self.sampler_ctx.precomp is None:
             raise ValueError(f"{self.workload.name} under "
                              f"{self.config.method!r} draws from no tables")
+        self._build_draw_layouts(tables)
         self.sampler_ctx = dataclasses.replace(self.sampler_ctx,
                                                precomp=tables)
+
+    def _build_draw_layouts(self, tables) -> None:
+        """On the card, build the table layouts the CUDA draws read (the
+        node records and the fence table, and the pair table where there
+        are alias tables) at set-up, so that no step pays for them."""
+        if tables is None or self.device.type != "cuda":
+            return
+        tables.draw_rows(self.graph.indptr)
+        tables.its_fence
+        if tables.alias_off is not None:
+            tables.alias_pair
 
     # ------------------------------------------------------ fused planning
     @property

@@ -3,7 +3,8 @@ port of the TPU kernel ``repro/kernels/precomp_kernel.py:alias_pick``.
 
 On CPU tensors it runs the plain version ``core.precomp.alias_offsets``;
 on CUDA tensors it launches the kernel (building it on first use) or
-raises.
+raises.  The kernel reads the tables' node records
+(``PrecompTables.draw_rows``) and pair table (``alias_pair``).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.core.precomp import PrecompTables, alias_offsets
 from repro_torch.kernels import build
+from repro_torch.kernels.its import require_rows
 
 
 def alias_pick(graph, tables: PrecompTables, cur: torch.Tensor,
@@ -23,13 +25,9 @@ def alias_pick(graph, tables: PrecompTables, cur: torch.Tensor,
     tables.require_alias()
     n = cur.shape[0]
     dev = cur.device
-    V, E = graph.num_nodes, graph.num_edges
-    build.require(graph.indptr, "graph.indptr", torch.int32, (V + 1,), dev)
-    build.require(tables.alias_prob, "tables.alias_prob", torch.float32,
-                  (E,), dev)
-    build.require(tables.alias_off, "tables.alias_off", torch.int32, (E,),
-                  dev)
-    build.require(tables.total, "tables.total", torch.float32, (V,), dev)
+    rows = require_rows(graph, tables, dev)
+    build.require(tables.alias_pair, "tables.alias_pair", torch.int32,
+                  (graph.num_edges, 2), dev)
     build.require(cur, "cur", torch.int64, (n,), dev)
     build.require(keys, "keys", torch.int64, (n, 2), dev)
     out = torch.empty(n, dtype=torch.int64, device=dev)
@@ -37,8 +35,7 @@ def alias_pick(graph, tables: PrecompTables, cur: torch.Tensor,
         return out
     lib = build.library("alias")
     err = lib.repro_alias_pick(
-        graph.indptr.data_ptr(), tables.alias_prob.data_ptr(),
-        tables.alias_off.data_ptr(), tables.total.data_ptr(), cur.data_ptr(),
+        rows.data_ptr(), tables.alias_pair.data_ptr(), cur.data_ptr(),
         keys.data_ptr(), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "alias_pick")

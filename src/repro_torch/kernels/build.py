@@ -117,13 +117,13 @@ _SIGNATURES = {
               [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P, _P])],
     "erjs": [("repro_erjs_select",
               [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 5)],
-    "its": [("repro_its_search", [_P, _P, _P, _P, _P, _I, _P, _P]),
+    "its": [("repro_its_search", [_P, _P, _P, _L, _P, _P, _I, _P, _P]),
             ("repro_its_search_aligned", [_P] * 5 + [_I, _L, _P, _P])],
-    "alias": [("repro_alias_pick", [_P, _P, _P, _P, _P, _P, _I, _P, _P]),
+    "alias": [("repro_alias_pick", [_P, _P, _P, _P, _I, _P, _P]),
               ("repro_alias_pick_aligned", [_P] * 6 + [_I, _L, _P, _P])],
     "megastep": [("repro_fused_epoch",
-                  [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 12
-                  + [_I, _I, _I, _I, _I, _L] + [_P] * 8)],
+                  [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 9
+                  + [_L] + [_P] * 3 + [_I, _I, _I, _I, _I, _L] + [_P] * 8)],
     "ervs_block": [("repro_ervs_block_select",
                     [_P] * 4 + [_I, _L] + [_P] * 4)],
     "erjs_block": [("repro_erjs_block_select",

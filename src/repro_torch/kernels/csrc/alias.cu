@@ -8,10 +8,13 @@
 // entry runs the same draw on the [R, 128] float32 streams of
 // kernels/ops.py, for the standalone op.
 //
-// What bounds it on the H100: two dependent rounds of 4 B reads per walker
-// (indptr, then prob and alias of one column), one Threefry: a few random
-// 32 B sectors per walker, so bytes in sectors, not instructions.  Design:
-// one thread per walker.
+// What bounds it on the H100: two dependent rounds of random reads per
+// walker (the row, then the column), one Threefry: a few random 32 B
+// sectors per walker, so bytes in sectors, not instructions.  Design: one
+// thread per walker; the engine's entry reads the row's start, degree and
+// total as one 16 B node record and the column's prob and alias as one
+// 8 B word of the pair table (alias_offset in alias.cuh): two random
+// sectors a walker where indptr, total, prob and alias cost four.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -19,16 +22,14 @@
 
 namespace repro {
 
-__global__ void alias_kernel(const int32_t* __restrict__ indptr,
-                             const float* __restrict__ prob,
-                             const int32_t* __restrict__ alias,
-                             const float* __restrict__ total,
+__global__ void alias_kernel(const int4* __restrict__ rec,
+                             const int2* __restrict__ pair,
                              const int64_t* __restrict__ cur,
                              const int64_t* __restrict__ keys, int n,
                              int64_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  out[i] = alias_offset(indptr, prob, alias, total, cur[i],
+  out[i] = alias_offset(rec, pair, cur[i],
                         static_cast<uint32_t>(keys[2 * i]),
                         static_cast<uint32_t>(keys[2 * i + 1]));
 }
@@ -70,13 +71,12 @@ extern "C" int repro_alias_pick_aligned(const float* prob2d,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_alias_pick(const int32_t* indptr, const float* prob,
-                                const int32_t* alias, const float* total,
-                                const int64_t* cur, const int64_t* keys, int n,
-                                int64_t* out, void* stream) {
+extern "C" int repro_alias_pick(const int4* rec, const int2* pair,
+                                const int64_t* cur, const int64_t* keys,
+                                int n, int64_t* out, void* stream) {
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   repro::alias_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      indptr, prob, alias, total, cur, keys, n, out);
+      rec, pair, cur, keys, n, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,16 @@
 // needed there.  The aligned entry runs the same draw on the [R, 128]
 // stream of kernels/ops.py, for the standalone op.
 //
-// What bounds it on the H100: log2(d) dependent 4 B reads of the CDF per
-// walker (latency), one Threefry and a handful of flops.  Design: one
-// thread per walker; the first probes of hub rows stay hot in L2 across
-// the walkers that share a hub.
+// What bounds it on the H100: random DRAM reads per walker, each a 64 B
+// access of which a binary search uses 4 B.  Design: one thread per
+// walker; the engine's entry reads the walker's row as one 16 B node
+// record (start, degree, total), searches the fence table (its_offset in
+// its.cuh: 12 MB at 48M edges, so its probes stay in L2, and the top
+// levels of a hub's row are shared by the walkers on it; the probes ask
+// L2 to keep their lines), then reads one aligned 64 B block of the CDF
+// with four 16 B loads in flight.  A walker costs its record and that
+// block from DRAM, where the binary search cost indptr, total and every
+// probe below the range's last 64 B.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -18,15 +24,15 @@
 
 namespace repro {
 
-__global__ void its_kernel(const int32_t* __restrict__ indptr,
+__global__ void its_kernel(const int4* __restrict__ rec,
                            const float* __restrict__ cdf,
-                           const float* __restrict__ total,
+                           const float* __restrict__ fence, int64_t n_edges,
                            const int64_t* __restrict__ cur,
                            const int64_t* __restrict__ keys, int n,
                            int64_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  out[i] = its_offset(indptr, cdf, total, cur[i],
+  out[i] = its_offset(rec, cdf, fence, n_edges, cur[i],
                       static_cast<uint32_t>(keys[2 * i]),
                       static_cast<uint32_t>(keys[2 * i + 1]));
 }
@@ -64,13 +70,13 @@ extern "C" int repro_its_search_aligned(const float* cdf2d,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_its_search(const int32_t* indptr, const float* cdf,
-                                const float* total, const int64_t* cur,
-                                const int64_t* keys, int n, int64_t* out,
-                                void* stream) {
+extern "C" int repro_its_search(const int4* rec, const float* cdf,
+                                const float* fence, int64_t n_edges,
+                                const int64_t* cur, const int64_t* keys,
+                                int n, int64_t* out, void* stream) {
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   repro::its_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      indptr, cdf, total, cur, keys, n, out);
+      rec, cdf, fence, n_edges, cur, keys, n, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,6 +5,12 @@
 // offset of v's inclusive float32 CDF row whose prefix exceeds the target
 // (zero-weight neighbours share the previous prefix and are never landed
 // on); -1 for empty or zero-total rows.
+//
+// its_row_offset binary-searches the row: a dependent 4 B read a probe,
+// each in its own 64 B segment until the range fits one.  its_offset, the
+// draw on the CSR, searches a fence table instead (fence[b] = cdf[16 b +
+// 15], the last entry of the CDF's b-th aligned 64 B block; 12 MB at 48M
+// edges, so it stays in L2) and then reads one block of the CDF whole.
 #pragma once
 #include <cstdint>
 
@@ -32,14 +38,97 @@ __device__ __forceinline__ int its_row_offset(const float* __restrict__ cdf,
   return (deg > 0 && tot > 0.0f) ? min(lo, deg - 1) : -1;
 }
 
-// The draw at node v of a CSR graph.
+// CDF entries a fence stands for: one 64 B segment of float32
+constexpr int kFenceBlock = 16;
+
+// A fence read that asks L2 to keep its line (evict_last): the fence table
+// is searched by every walker and its top levels are shared.
+__device__ __forceinline__ float fence_load(const float* p) {
+  float v;
+  asm("{\n\t.reg .b64 pol;\n\t"
+      "createpolicy.fractional.L2::evict_last.b64 pol, 1.0;\n\t"
+      "ld.global.nc.L2::cache_hint.f32 %0, [%1], pol;\n\t}"
+      : "=f"(v)
+      : "l"(p));
+  return v;
+}
+
+// The draw on the row [s, s + d) of total tot of a CDF (16 B aligned) of
+// n_edges entries, through its fence table.  The row covers blocks b0 =
+// s / 16 to b1 = (s + d - 1) / 16; the fences of b0 .. b1 - 1 are entries
+// of the row other than its last, in order.  The first of them above the
+// target names the block the answer lies in (b1 if none is).  The row is
+// non-decreasing, so the answer is the count of the row's entries at or
+// below the target: all of those before that block, plus those of the
+// block, counted from its 16 entries read as four 16 B loads.  That is the
+// binary search's answer bit for bit (zero-weight plateaus, a target that
+// rounds to the total).  kHinted: the fence probes ask L2 to keep their
+// lines and the block is read as a stream (evict first); K3 gains by it,
+// K4's ITS instance lost.
+template <bool kHinted>
+__device__ __forceinline__ int its_fence_offset(
+    const float* __restrict__ cdf, const float* __restrict__ fence,
+    int64_t n_edges, int s, int d, float tot, uint32_t k0, uint32_t k1) {
+  if (d <= 0 || !(tot > 0.0f)) return -1;
+  const float target = __fmul_rn(uniform_01(k0, k1, 0u, kItsSalt), tot);
+  int lo = s / kFenceBlock, hi = (s + d - 1) / kFenceBlock;
+  while (lo < hi) {  // the first fence above the target
+    const int mid = (lo + hi) >> 1;
+    if ((kHinted ? fence_load(fence + mid) : fence[mid]) <= target)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int64_t base = static_cast<int64_t>(lo) * kFenceBlock;
+  float x[kFenceBlock];
+  if (base + kFenceBlock <= n_edges) {
+    const float4* q = reinterpret_cast<const float4*>(cdf + base);
+#pragma unroll
+    for (int j = 0; j < kFenceBlock / 4; ++j) {
+      const float4 f = kHinted ? __ldcs(q + j) : q[j];
+      x[4 * j] = f.x;
+      x[4 * j + 1] = f.y;
+      x[4 * j + 2] = f.z;
+      x[4 * j + 3] = f.w;
+    }
+  } else {
+    // the CDF's last block, cut short: its entries past the end are no row's
+#pragma unroll
+    for (int j = 0; j < kFenceBlock; ++j)
+      x[j] = base + j < n_edges ? cdf[base + j] : 0.0f;
+  }
+  // the block's entries in the row: [from, to) of the block
+  const int from = max(s - static_cast<int>(base), 0);
+  const int to = min(s + d - static_cast<int>(base), kFenceBlock);
+  int below = 0;
+#pragma unroll
+  for (int j = 0; j < kFenceBlock; ++j)
+    below += (j >= from && j < to && x[j] <= target) ? 1 : 0;
+  return min(static_cast<int>(base) + from - s + below, d - 1);
+}
+
+// K3's draw at node v: its row from the node's 16 B record (start, degree,
+// total's bits, 0), one random read where indptr and total are two.
+__device__ __forceinline__ int its_offset(const int4* __restrict__ rec,
+                                          const float* __restrict__ cdf,
+                                          const float* __restrict__ fence,
+                                          int64_t n_edges, int64_t v,
+                                          uint32_t k0, uint32_t k1) {
+  const int4 r = rec[v];
+  return its_fence_offset<true>(cdf, fence, n_edges, r.x, r.y,
+                                __int_as_float(r.z), k0, k1);
+}
+
+// K4's draw at node v of a CSR graph (its walker already read indptr[v]).
 __device__ __forceinline__ int its_offset(const int32_t* __restrict__ indptr,
                                           const float* __restrict__ cdf,
+                                          const float* __restrict__ fence,
                                           const float* __restrict__ total,
-                                          int64_t v, uint32_t k0,
-                                          uint32_t k1) {
-  return its_row_offset(cdf, indptr[v], indptr[v + 1] - indptr[v], total[v],
-                        k0, k1);
+                                          int64_t n_edges, int64_t v,
+                                          uint32_t k0, uint32_t k1) {
+  const int s = indptr[v];
+  return its_fence_offset<false>(cdf, fence, n_edges, s, indptr[v + 1] - s,
+                                 total[v], k0, k1);
 }
 
 }  // namespace repro

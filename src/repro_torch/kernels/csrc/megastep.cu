@@ -22,8 +22,10 @@
 //   rejection      erjs_trials (erjs.cuh, K2's code) against the baked
 //                  per-node bound bmax, the reservoir's choice (by
 //                  ervs_warp_select_unfiltered) when trials run out;
-//   precomp_its    its_offset (its.cuh, K3's code) on valid rows,
-//   precomp_alias  alias_offset (alias.cuh, K5's code) on valid rows;
+//   precomp_its    its_offset (its.cuh, K3's code: the fence table, then
+//                  one CDF block) on valid rows,
+//   precomp_alias  alias_offset (alias.cuh, K5's code: the pair table) on
+//                  valid rows;
 //                  stale rows take the reservoir's choice (the same).
 // Every draw comes from the same Threefry counters as the staged scan, so
 // paths, end state and flags equal it bit for bit.  The TPU kernel's
@@ -72,9 +74,10 @@ struct EpochIn {
   const int64_t* rng;     // [W, 2] per-query key data
   const float* bmax;      // [V] rejection bound per node (rejection)
   const float* cdf;       // [E] ITS tables (precomp_its)
+  const float* fence;     // [E / 16]
+  int64_t n_edges;        // E
   const float* total;     // [V] row totals (precomp kinds)
-  const float* prob;      // [E] alias tables (precomp_alias)
-  const int32_t* alias;   // [E]
+  const int2* pair;       // [E] alias tables (precomp_alias): prob, alias
   const bool* invalid;    // [V] stale rows (precomp kinds)
   const float* mass;      // [W] PPR-Nibble residual mass (HOOK_PPR_NIBBLE)
 };
@@ -258,9 +261,9 @@ fused_epoch_lanes(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
         } else {
           const int off =
               KIND == kPrecompIts
-                  ? its_offset(g.indptr, in.cdf, in.total, cur, k0, k1)
-                  : alias_offset(g.indptr, in.prob, in.alias, in.total, cur,
-                                 k0, k1);
+                  ? its_offset(g.indptr, in.cdf, in.fence, in.total,
+                               in.n_edges, cur, k0, k1)
+                  : alias_offset(g.indptr, in.pair, in.total, cur, k0, k1);
           if (off >= 0) {
             nxt = g.indices[g.indptr[cur] + off];
             flag |= kPrecomp;
@@ -369,16 +372,17 @@ extern "C" int repro_fused_epoch(
     const int32_t* labels, const repro::Rule* rule_in, int hook, float decay,
     float eps, int kind, const int64_t* cur, const int64_t* prev,
     const int64_t* step, const bool* alive, const int64_t* rng,
-    const float* mass, const float* bmax, const float* cdf, const float* total,
-    const float* prob, const int32_t* alias, const bool* invalid, int n,
+    const float* mass, const float* bmax, const float* cdf, const float* fence,
+    int64_t n_edges, const float* total, const int2* pair, const bool* invalid,
+    int n,
     int tile, int trials, int rounds, int epoch_len, int64_t num_steps,
     int32_t* emitted, int32_t* flags, int64_t* ocur, int64_t* oprev,
     int64_t* ostep, bool* oalive, float* omass, void* stream) {
   const repro::Graph g{indptr, indices, h, labels};
   const repro::Rule rule = *rule_in;
   const repro::Hooks hooks{hook, decay, eps};
-  const repro::EpochIn in{cur, prev, step, alive, rng, bmax, cdf,
-                          total, prob, alias, invalid, mass};
+  const repro::EpochIn in{cur, prev, step, alive, rng, bmax, cdf, fence,
+                          n_edges, total, pair, invalid, mass};
   const repro::EpochOut out{emitted, flags, ocur, oprev, ostep, oalive, omass};
   auto s = static_cast<cudaStream_t>(stream);
   switch (kind) {

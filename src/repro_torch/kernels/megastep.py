@@ -48,6 +48,7 @@ from repro_torch.core.precomp import (PrecompTables, alias_offsets,
 from repro_torch.core.types import StepStats, WalkerState, wstate_rows
 from repro_torch.kernels import build
 from repro_torch.kernels.ervs import kernel_rule
+from repro_torch.kernels.its import require_cdf
 from repro_torch.kernels.prng import fold_in
 from repro_torch.kernels.rules import HOOK_NONE, HOOK_PPR_NIBBLE, HookRule
 
@@ -123,7 +124,7 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
         raise ValueError(f"tile, epoch_len, rjs_trials and rjs_max_rounds "
                          f"must be positive, got {tile}, {T}, {rjs_trials}, "
                          f"{rjs_max_rounds}")
-    ptr = {k: None for k in ("bmax", "cdf", "total", "prob", "alias",
+    ptr = {k: None for k in ("bmax", "cdf", "fence", "total", "pair",
                              "invalid")}
     if kind == "rejection":
         build.require(bmax, "bmax", torch.float32, (V,), dev)
@@ -135,15 +136,13 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
         ptr["total"] = tables.total.data_ptr()
         ptr["invalid"] = tables.invalid.data_ptr()
         if kind == "precomp_its":
-            build.require(tables.cdf, "tables.cdf", torch.float32, (E,), dev)
+            require_cdf(tables, E, dev)
             ptr["cdf"] = tables.cdf.data_ptr()
+            ptr["fence"] = tables.its_fence.data_ptr()
         else:
-            build.require(tables.alias_prob, "tables.alias_prob",
-                          torch.float32, (E,), dev)
-            build.require(tables.alias_off, "tables.alias_off", torch.int32,
-                          (E,), dev)
-            ptr["prob"] = tables.alias_prob.data_ptr()
-            ptr["alias"] = tables.alias_off.data_ptr()
+            build.require(tables.alias_pair, "tables.alias_pair",
+                          torch.int32, (E, 2), dev)
+            ptr["pair"] = tables.alias_pair.data_ptr()
     emitted = torch.empty((W, T), dtype=torch.int32, device=dev)
     flags = torch.empty((W, T), dtype=torch.int32, device=dev)
     out_mass = None if mass is None else torch.empty_like(mass)
@@ -163,7 +162,7 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
         hooks.kind, hooks.decay, hooks.eps, FUSED_KINDS.index(kind),
         state.cur.data_ptr(), state.prev.data_ptr(), state.step.data_ptr(),
         state.alive.data_ptr(), state.rng.data_ptr(), ptr_of(mass),
-        ptr["bmax"], ptr["cdf"], ptr["total"], ptr["prob"], ptr["alias"],
+        ptr["bmax"], ptr["cdf"], ptr["fence"], E, ptr["total"], ptr["pair"],
         ptr["invalid"], W, tile, rjs_trials, rjs_max_rounds, T,
         int(num_steps), emitted.data_ptr(), flags.data_ptr(),
         out.cur.data_ptr(), out.prev.data_ptr(), out.step.data_ptr(),

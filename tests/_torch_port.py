@@ -360,3 +360,80 @@ def erjs_walkers(name: str, trials: int, rounds: int):
     return dict(cur=cur, prev=prev, step=step, kd=kd, bound=bound, ws=ws,
                 first=acc, used=used.astype(np.int32), kind=np.array(kind),
                 arrays=pool["arrays"])
+
+
+#: row lengths the table draws (K3's fence search, K5's pair table) treat
+#: apart: inside one 16-entry CDF block, up to one block boundary or two,
+#: and a hub row
+TABLE_ROW_LENGTHS = (1, 15, 16, 17, 31, 32, 33)
+TABLE_HUB_LENGTH = 70_000
+#: kinds of h on those rows
+TABLE_ROW_KINDS = ("plain", "integer", "plateaus")
+#: Threefry key data whose ITS uniform (counters (0, ITS_SALT)) is the
+#: largest there is, or the next: u * total rounds to the total there
+TOP_UNIFORM_KEYS = ((3548999674, 2852473753), (1340893859, 2687700512),
+                    (3806207594, 4073675450), (2517282670, 191853300),
+                    (3814126426, 3399421186), (3963285522, 1958224422))
+
+
+def table_rows_graph(kind: str, seed: int):
+    """Hand-built rows for the table draws: (indptr, indices, h, labels) as
+    numpy arrays.  For each length of ``TABLE_ROW_LENGTHS`` 32 rows one
+    after another (a row of one edge before each where the length is a
+    multiple of 16), so that their starts take every residue mod 16 and
+    mod 32, and most rows share their first CDF block with the row before;
+    then a row of ``TABLE_HUB_LENGTH`` edges, and empty rows and rows of
+    zero total.  Kinds of h: ``plain`` U(0.5, 5); ``integer`` 1 to 3
+    (targets land on CDF values exactly); ``plateaus`` U(0.5, 5) with runs
+    of 1 to 40 zeros, which cross block boundaries, and rows ending in
+    zeros."""
+    rng = np.random.default_rng(seed)
+    deg = []
+    for d in TABLE_ROW_LENGTHS:
+        for i in range(32):
+            if d % 16 == 0:
+                deg.append(1)
+            deg.append(d)
+    deg.append(TABLE_HUB_LENGTH)
+    # empty rows, each before a row of zero total
+    deg = np.array(deg + [0, 1, 0, 15, 0, 33, 0, 3], np.int64)
+    V = deg.size
+    indptr = np.zeros(V + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    E = int(indptr[-1])
+    if kind == "integer":
+        h = rng.integers(1, 4, E).astype(np.float32)
+    else:
+        h = rng.uniform(0.5, 5.0, E).astype(np.float32)
+    if kind == "plateaus":
+        at = 0
+        while at < E:
+            at += int(rng.integers(1, 40))
+            run = int(rng.integers(1, 41))
+            h[at:at + run] = 0.0
+            at += run
+        for v in range(1, V, 5):  # rows ending in zeros
+            lo, hi = indptr[v], indptr[v + 1]
+            h[max(lo + 1, hi - 3):hi] = 0.0
+    zero_total = [v for v in range(1, V) if deg[v] and deg[v - 1] == 0]
+    for v in zero_total:
+        h[indptr[v]:indptr[v + 1]] = 0.0
+    indices = np.concatenate(
+        [np.sort(rng.integers(0, V, d)) for d in deg]).astype(np.int32)
+    labels = np.zeros(E, np.int32)
+    return indptr.astype(np.int32), indices, h, labels
+
+
+def table_walkers(indptr, per: int, seed: int):
+    """Walkers on every row: ``per`` with random keys and one with each of
+    ``TOP_UNIFORM_KEYS``, 200 more with random keys on the largest row:
+    (cur, raw key data [n, 2] uint32) as numpy arrays."""
+    deg = np.diff(np.asarray(indptr, np.int64))
+    V = deg.size
+    top = np.asarray(TOP_UNIFORM_KEYS, np.uint32)
+    cur = np.concatenate([np.repeat(np.arange(V), per),
+                          np.repeat(np.arange(V), top.shape[0]),
+                          np.full(200, int(np.argmax(deg)))])
+    kd = np.concatenate([random_keys(V * per, seed), np.tile(top, (V, 1)),
+                         random_keys(200, seed + 1)])
+    return cur.astype(np.int64), kd

@@ -4,7 +4,7 @@ other regimes and K2 on the lanes the main path hands them, on the card,
 beside the same kernels built from other trees.
 
     PYTHONPATH=src python tools/time_reservoir.py [--nodes N] [--reps 3] \
-        [--other DIR ...] [--no-regimes] [--cell NAME ...]
+        [--other DIR ...] [--no-regimes] [--cell NAME ...] [--split]
 
 Builds the graph ``chip_smoke.py`` runs (soc-LiveJournal1 scale by
 default) and times, with CUDA events, on the cells of the smoke:
@@ -24,7 +24,16 @@ default) and times, with CUDA events, on the cells of the smoke:
 * ``k2_<program>``: K2 on the eRJS lanes of the six programs that run it
   (``chip_smoke.main_path_split`` at ``chip_smoke.MID_STEP``), with what
   its trials did (walkers pending after round 0, fallbacks, mean
-  proposals).
+  proposals);
+* ``k3_<program>``: K3 on the precomp lanes of adaptive deepwalk and
+  ppr_nibble (``chip_smoke.main_path_split``); ``k5_<program>``: K5 on
+  the live lanes of their fused ``alias_precomp`` engines at the same
+  step, as ``chip_smoke.time_fused`` takes them.  Both warm (launches
+  back to back) and cold (``chip_smoke.cold_ms``: L2 flushed before each
+  launch).  With ``--split`` each also runs on the same walkers moved to
+  the graph's shortest rows (``/short_rows``: what a walker costs beside
+  its row's search) and sorted by row (``/by_row``: neighbouring walkers
+  share their rows' sectors).
 
 Each cell's bound is the smoke's (``chip_smoke.pipe_bound``).  With
 ``--other DIR`` (a checkout or a ``git archive`` of another commit;
@@ -73,7 +82,7 @@ def other_libs(tree: Path) -> dict:
 
 
 #: the libraries whose kernels the cells time
-SWAPPED = ("ervs", "erjs", "megastep")
+SWAPPED = ("ervs", "erjs", "megastep", "its", "alias")
 
 
 class OneLaunchErjs:
@@ -91,13 +100,93 @@ class OneLaunchErjs:
         return self.lib.repro_erjs_select(*args[:-2], args[-1])
 
 
+#: what the cells' tables hand the kernels, for trees that read the
+#: tables another way: the pair table's address -> (keep probabilities,
+#: alias offsets), the node records' address -> (indptr, total)
+PAIRS, ROWS = {}, {}
+
+
+def register_tables(graph, tables) -> None:
+    """Note ``tables``' pair table and node records for the shims."""
+    rows = tables.draw_rows(graph.indptr)
+    ROWS[rows.data_ptr()] = (graph.indptr.data_ptr(),
+                             tables.total.data_ptr())
+    if tables.alias_off is not None:
+        PAIRS[tables.alias_pair.data_ptr()] = (tables.alias_prob.data_ptr(),
+                                               tables.alias_off.data_ptr())
+
+
+class SplitTables:
+    """The its, alias or megastep library of a tree from before the fence,
+    pair and node-record tables, behind this tree's entry points: K3
+    searches the CDF by indptr and total without the fence table, K5 and
+    K4's alias instance read the keep probabilities and alias offsets
+    (``ROWS``, ``PAIRS``).  It exists for the parents of that design,
+    which PERF.md's design steps were timed against."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def repro_its_search(self, rows, cdf, fence, n_edges, *rest):
+        indptr, total = ROWS[rows]
+        return self.lib.repro_its_search(indptr, cdf, total, *rest)
+
+    def repro_alias_pick(self, rows, pair, *rest):
+        indptr, total = ROWS[rows]
+        return self.lib.repro_alias_pick(indptr, *PAIRS[pair], total, *rest)
+
+    def repro_fused_epoch(self, *args):
+        # after the 16 arguments up to the bound table: cdf, fence, n_edges,
+        # total, pair, invalid, where the parent took cdf, total, prob,
+        # alias, invalid
+        cdf, _, _, total, pair, invalid = args[16:22]
+        prob, alias = PAIRS.get(pair, (None, None))
+        return self.lib.repro_fused_epoch(*args[:16], cdf, total, prob, alias,
+                                          invalid, *args[22:])
+
+
+class CsrTables:
+    """The its or alias library of a design tree with the fence and pair
+    tables whose K3 and K5 read indptr and total instead of the node
+    records (``ROWS``)."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def repro_its_search(self, rows, cdf, fence, *rest):
+        indptr, total = ROWS[rows]
+        return self.lib.repro_its_search(indptr, cdf, fence, total, *rest)
+
+    def repro_alias_pick(self, rows, pair, *rest):
+        indptr, total = ROWS[rows]
+        return self.lib.repro_alias_pick(indptr, pair, total, *rest)
+
+
 def as_this_tree(stem: str, lib):
     """``lib`` callable as this tree's wrappers call library ``stem``."""
     from repro_torch.kernels import build
 
-    args = len(build._SIGNATURES["erjs"][0][1])
-    if stem == "erjs" and len(lib.repro_erjs_select.argtypes) == args - 1:
+    sig = lambda name: len(dict(build._SIGNATURES[stem])[name])
+    if stem == "erjs" and len(lib.repro_erjs_select.argtypes) \
+            == sig("repro_erjs_select") - 1:
         return OneLaunchErjs(lib)
+    # arguments the other layouts take beside this tree's: (split, csr)
+    other = {"its": ("repro_its_search", -1, 1),
+             "alias": ("repro_alias_pick", 2, 1),
+             "megastep": ("repro_fused_epoch", -1, None)}
+    if stem in other:
+        name, split, csr = other[stem]
+        extra = len(getattr(lib, name).argtypes) - sig(name)
+        if extra == split:
+            return SplitTables(lib)
+        if extra == csr:
+            return CsrTables(lib)
     return lib
 
 
@@ -159,14 +248,17 @@ CELLS = ("k4_deepwalk_1", "k4_deepwalk_16", "k4_ppr_nibble_16",
          "k1_staged_ervs", "k1_random", "k1_adaptive_node2vec",
          *(f"k4_{p}_{k}" for p in chip_smoke.FUSED_PROGRAMS
            for k in ("rejection", "precomp_its", "precomp_alias")),
-         *(f"k2_{p}" for p in K2_PROGRAMS))
+         *(f"k2_{p}" for p in K2_PROGRAMS),
+         *(f"k{k}_{p}" for k in (3, 5) for p in chip_smoke.FUSED_PROGRAMS))
 #: the cells to time (``--cell``)
 WANT = set(CELLS)
 
 
-def timed(label: str, fn, trees, reps: int, b_ms: float, b_by: str) -> None:
-    """``compare``, then time each tree's ``fn`` in turns."""
-    if label not in WANT:
+def timed(label: str, fn, trees, reps: int, b_ms: float, b_by: str,
+          cold: bool = False) -> None:
+    """``compare``, then time each tree's ``fn`` in turns (with ``cold``,
+    also with the L2 flushed before each launch)."""
+    if label.split("/")[0] not in WANT:
         return
     compare(label, fn, trees)
     print(f"[reservoir] {label}: bound {b_ms:.4f} ms ({b_by})", flush=True)
@@ -175,7 +267,9 @@ def timed(label: str, fn, trees, reps: int, b_ms: float, b_by: str) -> None:
         ctx = running(libs) if libs else contextlib.nullcontext()
         with ctx:
             ms = chip_smoke.cuda_ms(fn, reps)
-        print(f"[reservoir] {label} {tree}: {ms:.4f} ms", flush=True)
+            c_ms = chip_smoke.cold_ms(fn, reps) if cold else None
+        print(f"[reservoir] {label} {tree}: {ms:.4f} ms"
+              + (f", cold {c_ms:.4f} ms" if cold else ""), flush=True)
 
 
 def k4_cells(g, eng, pname, trees, reps, regimes) -> None:
@@ -214,6 +308,7 @@ def k4_cells(g, eng, pname, trees, reps, regimes) -> None:
                 args.update(rjs_trials=1, rjs_max_rounds=1)
             else:
                 args.update(tables=chip_smoke.stale_every_third(e.precomp))
+                register_tables(g, args["tables"])
             what = ("every trial budget 1" if kind == "rejection"
                     else "every third row stale")
             t0 = time.perf_counter()
@@ -227,6 +322,7 @@ def k4_cells(g, eng, pname, trees, reps, regimes) -> None:
         # the regime as the smoke times it: its own budget and tables
         args = dict(base, kind=kind, epoch_len=STEPS, bmax=e._fused_bmax,
                     tables=e.precomp)
+        register_tables(g, e.precomp)
         fn = lambda: megastep.fused_epoch(g, prog, p, state, **args)
         got = fn()
         stats = {}
@@ -281,6 +377,83 @@ def k2_cell(pname, eng, trees, reps) -> None:
     timed(f"k2_{pname}", rjs.run, trees, reps, b_ms, b_by)
 
 
+def draw_cells(label, g, draw, cur, keys, work, trees, reps,
+               split: bool) -> None:
+    """K3 or K5 (``draw(cur, keys)``) on the walkers at ``cur`` with keys
+    ``keys``, warm and cold; with ``split`` also on the same walkers moved
+    to the graph's shortest rows and sorted by row.  ``work(cur, keys)``
+    gives the bound's (bytes, ALU, instructions)."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+
+    sets = [(label, cur, keys)]
+    if split:
+        deg = g.degrees()
+        shortest = int(deg[deg > 0].min())
+        rows = (deg == shortest).nonzero().squeeze(1)
+        gen = torch.Generator(device=cur.device).manual_seed(0)
+        pick = torch.randint(rows.numel(), (cur.numel(),), generator=gen,
+                             device=cur.device)
+        order = torch.argsort(cur, stable=True)
+        sets += [(f"{label}/short_rows", rows[pick].contiguous(), keys),
+                 (f"{label}/by_row", cur[order].contiguous(),
+                  keys[order].contiguous())]
+        print(f"[reservoir] {label}: short rows of degree {shortest} "
+              f"({rows.numel()} of them)", flush=True)
+    for name, c, k in sets:
+        d = degrees_of(g, c).double()
+        print(f"[reservoir] {name}: {c.numel()} walkers, mean degree "
+              f"{float(d.mean()):.1f}, {int(torch.unique(c).numel())} "
+              f"distinct rows", flush=True)
+        b_ms, b_by = chip_smoke.pipe_bound(*work(c, k))
+        timed(name, lambda c=c, k=k: draw(c, k), trees, reps, b_ms, b_by,
+              cold=True)
+
+
+def k3_cell(pname, eng, trees, reps, split) -> None:
+    """K3 on the precomp lanes of ``pname``'s adaptive main-path state."""
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.kernels.its import its_search
+
+    g = eng.graph
+    register_tables(g, eng.precomp)
+    split_ = chip_smoke.main_path_split(eng, chip_smoke.MID_STEP[pname])
+    cur, _, _, idx, _ = chip_smoke.lanes_of(split_.state,
+                                            split_.part.want_pre)
+    keys = split_.keys[idx].contiguous()
+    del split_
+    draw_cells(f"k3_{pname}", g,
+               lambda c, k: its_search(g, eng.precomp, c, k), cur, keys,
+               lambda c, k: chip_smoke.its_work(
+                   degrees_of(g, c), chip_smoke.ENGINE_DRAW_BYTES),
+               trees, reps, split)
+
+
+def k5_cell(pname, eng, trees, reps, split) -> None:
+    """K5 on the live lanes of ``pname``'s fused ``alias_precomp`` engine
+    at its mid-walk state."""
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.kernels.alias import alias_pick
+
+    g, tables = eng.graph, eng.precomp
+    register_tables(g, tables)
+    state = chip_smoke.mid_walk_state(eng, chip_smoke.MID_STEP[pname])
+    idx = (state.alive & (state.step < chip_smoke.WALK_STEPS)).nonzero() \
+        .squeeze(1)
+    cur = state.cur[idx].contiguous()
+    keys = state.stream_keys()[idx].contiguous()
+    del state
+
+    def work(c, k):
+        rej = chip_smoke.alias_rejected(k, degrees_of(g, c),
+                                        alias_pick(g, tables, c, k))
+        return chip_smoke.alias_work(c.numel(), int(rej.sum()),
+                                     chip_smoke.ENGINE_DRAW_BYTES)
+
+    draw_cells(f"k5_{pname}", g, lambda c, k: alias_pick(g, tables, c, k),
+               cur, keys, work, trees, reps, split)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=chip_smoke.LJ_NODES)
@@ -288,6 +461,7 @@ def main() -> int:
     ap.add_argument("--other", type=Path, action="append", default=[])
     ap.add_argument("--no-regimes", action="store_true")
     ap.add_argument("--cell", action="append", choices=CELLS)
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args()
     if args.cell:
         WANT.intersection_update(args.cell)
@@ -322,7 +496,7 @@ def main() -> int:
             for i, c in enumerate(chip_smoke.trial_sass(paths[stem], kernel)):
                 print(f"[sass] {tree} {kernel} trial loop {i}: {c}",
                       flush=True)
-        for stem in ("erjs", "megastep"):
+        for stem in ("erjs", "megastep", "its", "alias"):
             for name, what in chip_smoke.ptxas_lines(
                     paths[stem].with_suffix(".log").read_text()):
                 if "registers" in what and "scan_row" not in name:
@@ -330,6 +504,17 @@ def main() -> int:
     g = power_law_graph(args.nodes, chip_smoke.LJ_AVG_DEGREE,
                         weight_dist="uniform", seed=0).to("cuda")
 
+    for pname in chip_smoke.FUSED_PROGRAMS:
+        if f"k3_{pname}" in WANT:
+            eng = WalkEngine(g, make_workload(pname), EngineConfig(
+                method="adaptive", jump_threshold=chip_smoke.JUMP_THRESHOLD))
+            k3_cell(pname, eng, trees, args.reps, args.split)
+            del eng
+        if f"k5_{pname}" in WANT:
+            eng = WalkEngine(g, make_workload(pname), EngineConfig(
+                method="alias_precomp", step_exec="fused"))
+            k5_cell(pname, eng, trees, args.reps, args.split)
+            del eng
     for pname in chip_smoke.FUSED_PROGRAMS:
         if args.no_regimes and not any(c.startswith(f"k4_{pname}_")
                                        for c in WANT):
