@@ -50,9 +50,13 @@ Phases (any failure exits non-zero and prints no result line):
              after); then each kernel is held bitwise against its plain
              version on the card — on every walker, except K6 on (b):
              4,096 walkers, one on each of the 64 largest distinct rows —
-             and timed on all walkers.  Then Fig. 12a's RNG-draw inputs
-             (128 walkers on rows of 512 and 4,096 weights): K6's mean
-             draws and jumped tiles, bitwise against the plain version.
+             and timed on all walkers.  K6's plan and table pass is held
+             bitwise against its plain versions (``ref.ervs_leaders_ref``,
+             ``ref.ervs_tile_tables_ref``) on every leader of both sets,
+             timed alone beside the whole call, and a call's peak device
+             memory is logged.  Then Fig. 12a's RNG-draw inputs (128
+             walkers on rows of 512 and 4,096 weights): K6's mean draws
+             and jumped tiles, bitwise against the plain version.
 3. check   — each kernel against its plain PyTorch version on the card, on
              a few thousand walkers of the full graph (hubs included):
              K2, K3, K5 and K1's jump instance bitwise; plain K1 bitwise
@@ -157,9 +161,9 @@ PEAK_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # counts an FMA as two operations at 128 lanes an SM, so 122 / 67e12 is
 # ~61 instructions at the issue rate, near the SASS's 68 (THREEFRY_INSTR)
 # because a rotate is one SHF; but 41 of those run only on the integer
-# ALU, at half the lanes, which takes 34% longer.  The bounds of K4
-# (every regime), plain K1, K2, K3 and K5 count by pipe (pipe_bound); the
-# others keep this count until theirs are recounted.
+# ALU, at half the lanes, which takes 34% longer.  Every bound but K1
+# jump's counts by pipe (pipe_bound); K1 jump keeps this count until it
+# is recounted.
 THREEFRY_OPS = 122
 # the pipe counts, from the SASS of the scan's edge loop
 # (scan_row_call<kScanH, true> in K4; every run logs the loop): one
@@ -187,6 +191,28 @@ EXACT_KEY_INSTR, EXACT_KEY_ALU = 42, 3
 PROBE_INSTR, PROBE_ALU = 4, 3
 ITS_DRAW_INSTR, ITS_DRAW_ALU = 6, 3
 ALIAS_DRAW_INSTR, ALIAS_DRAW_ALU = 8, 3
+# XLA's float32 exp and log as the kernels run them (xla_math.cuh), an
+# IEEE float32 divide (__fdiv_rn: a reciprocal, its Newton step, FCHK and
+# the quotient's two corrections; its slow path is a call, taken only at
+# extreme exponents) and the rest of an eRVS draw's update (the product,
+# the clamps, the fused multiply-add, the loop's compare and counters),
+# counted in the SASS of K6's walk kernel (ervs_walk_kernel, CUDA 12.8);
+# K7's trial loop as a whole (a Threefry, two uniforms, the candidate,
+# its clipped address, the test), counted in erjs_block_kernel's SASS; a
+# K6 tile's retirement (its compare and subtract) and a table entry of
+# its table pass (a sum's add, per position of a crossing tile the scan's
+# two adds and the running maximum); a K8 token (the key's fused
+# multiply-add and the compare)
+XLA_EXP_INSTR, XLA_EXP_ALU = 21, 1
+XLA_LOG_INSTR, XLA_LOG_ALU = 40, 3
+FDIV_INSTR, FDIV_ALU = 10, 0
+ERVS_UPDATE_INSTR, ERVS_UPDATE_ALU = 16, 0
+ERJS_TRIAL_INSTR, ERJS_TRIAL_ALU = 101, 69
+TILE_RETIRE_INSTR = 2
+TABLE_SUM_INSTR, TABLE_SCAN_INSTR = 1, 3
+TOKEN_KEY_INSTR = 2
+# bytes a random 4 B read moves from device memory: one 32 B sector
+SECTOR_BYTES = 32.0
 # lanes an SM a clock on the H100: the integer ALU's, and the issue's
 INT_ALU_LANES = 64
 ISSUE_LANES = 128
@@ -256,7 +282,6 @@ OPS_ERJS_BUDGET = (8, 16)
 OPS_PLAIN_LANES = 4096
 OPS_HUB_LANES = 64
 OPS_SEED = 14
-OPS_HUB_REPS = 2
 # phase 1b, LM serving: the model served at full width, its requests
 # (batch, prompt tokens, new tokens, temperature), the generator seed of
 # the weights and prompts, the sampler's key, and the seed of K8's checks
@@ -685,11 +710,15 @@ SCAN_RULES = {"0": "H", "1": "MetaPath", "2": "Dist", "3": "Visited"}
 # (library, kernel) whose scan loops the build phase logs: K4's reservoir
 # instance without hooks (plain K1 inlines its eight loops)
 SCAN_KERNELS = (("megastep", "fused_epoch_kernelILi0EE"),)
-# (library, kernel) whose eRJS trial loops the build phase logs: K2's
-# round 0 and later rounds, and K4's rejection instance without hooks
+# (library, kernel) whose Threefry loops the build phase logs: K2's round
+# 0 and later rounds, K4's rejection instance without hooks, K6's
+# crossing loop (a draw, its search and its update) and K7's trial loop
+# (whose count is ERJS_TRIAL_*)
 TRIAL_KERNELS = (("erjs", "erjs_round0_kernel"),
                  ("erjs", "erjs_rounds_kernel"),
-                 ("megastep", "fused_epoch_lanesILi1ELi0E"))
+                 ("megastep", "fused_epoch_lanesILi1ELi0E"),
+                 ("ervs_block", "ervs_walk_kernel"),
+                 ("erjs_block", "erjs_block_kernel"))
 # the table draws' kernels (K3 and K5 on the CSR) whose code phase 1 logs
 DRAW_KERNELS = (("its", "its_kernel"), ("alias", "alias_kernel"))
 
@@ -1939,14 +1968,36 @@ def time_fused(fused: dict, pname: str) -> dict:
 
 # ------------------------------------------------------ LM serving
 def token_sample_work(rows: int, vocab: int, greedy: bool):
-    """(bytes, operations) of K8 on [rows, vocab] logits: each logit read
-    once, the seed read and the ids written; per token a compare, and when
-    sampling a Threefry, two logs, the uniform's map and the key's
-    multiply-add."""
+    """(bytes, integer-ALU instructions, instructions) of K8 on [rows,
+    vocab] logits: each logit read once, the seed read and the ids
+    written; per token a compare, and when sampling a Threefry, the
+    uniform's map, two of XLA's logs and the key's multiply-add; per row
+    its key's parity."""
     n = float(rows) * vocab
     nbytes = 4.0 * n + 16.0 + 4.0 * rows
-    per_token = 1 if greedy else 1 + THREEFRY_OPS + 2 * XLA_LOG_OPS + 5
-    return nbytes, n * per_token
+    if greedy:
+        return nbytes, 0.0, n * KEY_COMPARE_INSTR
+    return (nbytes,
+            n * (THREEFRY_ALU + UNIFORM_ALU + 2 * XLA_LOG_ALU)
+            + rows * PARITY_ALU,
+            n * (THREEFRY_INSTR + UNIFORM_INSTR + 2 * XLA_LOG_INSTR
+                 + TOKEN_KEY_INSTR) + rows * PARITY_INSTR)
+
+
+def token_note(greedy: bool) -> str:
+    """How a pipe bound of K8 was counted, for its row."""
+    sms, hz = sm_rate()
+    alu = THREEFRY_ALU + UNIFORM_ALU + 2 * XLA_LOG_ALU
+    instr = THREEFRY_INSTR + UNIFORM_INSTR + 2 * XLA_LOG_INSTR \
+        + TOKEN_KEY_INSTR
+    per = (f"a compare ({KEY_COMPARE_INSTR} instruction)" if greedy else
+           f"{alu} integer-ALU of {instr} instructions (Threefry and "
+           f"XLA's log from the SASS: the uniform, two logs, the key's "
+           f"multiply-add and compare)")
+    return (f"per logit 4 B and {per}; per row the seed, the id and the "
+            f"key's parity; the ALU at {INT_ALU_LANES} and the issue at "
+            f"{ISSUE_LANES} lanes an SM a clock, {sms} SMs at "
+            f"{hz / 1e6:.0f} MHz")
 
 
 def lm_phase(dev, reps: int) -> dict:
@@ -2111,13 +2162,14 @@ def lm_phase(dev, reps: int) -> dict:
                 lib = lambda: torch.argmax(lg, 1)
                 lib_ms = cuda_ms(lib, reps)
                 lib_dev_ms = device_ms(lib, reps)
-            b_ms, b_by = bound(*token_sample_work(*lg.shape,
-                                                  mode == "greedy"))
+            b_ms, b_by = pipe_bound(*token_sample_work(*lg.shape,
+                                                       mode == "greedy"))
             rows["token_sample", f"{mode}_{label}"] = dict(
                 lanes=int(lg.shape[0]), vocab=int(lg.shape[1]), ms=ms,
                 device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by,
-                mismatches=0, launches=launches[mode])
+                bound_note=token_note(mode == "greedy"), mismatches=0,
+                launches=launches[mode])
     shown = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     # 16-byte against scalar loads: greedy at [decode_rows, V], in turns
     times = {"16-byte": [], "scalar": []}
@@ -2136,7 +2188,7 @@ def lm_phase(dev, reps: int) -> dict:
         log(f"time {name} [{label}]: [{r['lanes']}, {r['vocab']}] logits, "
             f"kernel {r['ms']:.4f} ms (device {shown(r['device_ms'])}), "
             f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}){lib}")
+            f"({r['bound_by']}){lib}; bound counted: {r['bound_note']}")
     return rows
 
 
@@ -2167,14 +2219,16 @@ def drive_ops(label: str, fn) -> dict:
 
 
 def ervs_block_work(nodes, degs, draws, jumped):
-    """(bytes, operations) of K6 on walkers at ``nodes``.  A tile's sum
-    and prefix sums depend on its row alone, so they are counted once per
-    distinct row: each weight read once (4 B) and summed once, and the
-    prefix sums of the row's crossing tiles (1,024 adds a tile; a row has
-    at least as many as its walker with the most).  Per walker: row0,
-    deg, seed in and three outputs out (36 B), a compare and a subtract
-    per tile; per draw a binary search of a tile (10 compares), a
-    Threefry and ~100 operations of exp, two logs and the update."""
+    """(bytes, integer-ALU instructions, instructions) of K6 on walkers at
+    ``nodes``.  A tile's sum and prefix sums depend on its row alone, so
+    they are counted once per distinct row: each weight read once (4 B)
+    and added once, and per position of the row's crossing tiles (a row
+    has at least as many as its walker with the most) the scan's two adds
+    and the running maximum.  Per walker: row0, deg, seed in and three
+    outputs out (36 B), its key's parity, a compare and a subtract per
+    tile; per draw a Threefry, two uniforms, an exp, two logs, two divides
+    and the update (from the SASS), and a binary search over the crossing
+    tile's positions (``probes``, PROBE_* a probe)."""
     import torch
     from repro_torch.kernels.ref import TILE
 
@@ -2187,23 +2241,85 @@ def ervs_block_work(nodes, degs, draws, jumped):
     row_cross = torch.zeros(rows.numel(), dtype=torch.int64,
                             device=degs.device).scatter_reduce_(
         0, inv, crossing, "amax")
-    prefix = torch.minimum(row_cross.to(torch.float64) * TILE, row_deg)
-    n_draws = float(draws.to(torch.float64).sum())
-    nbytes = 4.0 * float(row_deg.sum()) + 36.0 * degs.numel()
-    ops = float(row_deg.sum()) + float(prefix.sum()) \
-        + 2.0 * float(tiles.to(torch.float64).sum()) \
-        + n_draws * (10 + THREEFRY_OPS + 100)
-    return nbytes, ops
+    prefix = float(torch.minimum(row_cross.to(torch.float64) * TILE,
+                                 row_deg).sum())
+    d = draws.to(torch.float64)
+    n_draws = float(d.sum())
+    n_probes = float((d * probes(degs.clamp(max=TILE))).sum())
+    n = float(degs.numel())
+    n_tiles = float(tiles.to(torch.float64).sum())
+    draw_alu = (THREEFRY_ALU + 2 * UNIFORM_ALU + XLA_EXP_ALU
+                + 2 * XLA_LOG_ALU + 2 * FDIV_ALU + ERVS_UPDATE_ALU)
+    draw_instr = (THREEFRY_INSTR + 2 * UNIFORM_INSTR + XLA_EXP_INSTR
+                  + 2 * XLA_LOG_INSTR + 2 * FDIV_INSTR + ERVS_UPDATE_INSTR)
+    nbytes = 4.0 * float(row_deg.sum()) + 36.0 * n
+    alu = n * PARITY_ALU + n_draws * draw_alu + n_probes * PROBE_ALU
+    instr = (TABLE_SUM_INSTR * float(row_deg.sum())
+             + TABLE_SCAN_INSTR * prefix + n * PARITY_INSTR
+             + TILE_RETIRE_INSTR * n_tiles + n_draws * draw_instr
+             + n_probes * PROBE_INSTR)
+    return nbytes, alu, instr
 
 
-def erjs_block_work(trials):
-    """(bytes, operations) of K7: per walker row0, deg, bound, seed in and
-    two outputs out (36 B), per trial one 4 B weight, a Threefry and ~10
-    operations."""
+def ervs_block_note() -> str:
+    """How K6's pipe bound was counted, for its rows."""
+    sms, hz = sm_rate()
+    alu = (THREEFRY_ALU + 2 * UNIFORM_ALU + XLA_EXP_ALU + 2 * XLA_LOG_ALU
+           + 2 * FDIV_ALU + ERVS_UPDATE_ALU)
+    instr = (THREEFRY_INSTR + 2 * UNIFORM_INSTR + XLA_EXP_INSTR
+             + 2 * XLA_LOG_INSTR + 2 * FDIV_INSTR + ERVS_UPDATE_INSTR)
+    return (f"each distinct row's weights once (4 B, {TABLE_SUM_INSTR} "
+            f"add), {TABLE_SCAN_INSTR} instructions a position of its "
+            f"crossing tiles; per walker 36 B and {TILE_RETIRE_INSTR} "
+            f"instructions a tile; per draw {alu} integer-ALU of {instr} "
+            f"instructions (Threefry, exp {XLA_EXP_INSTR}, log "
+            f"{XLA_LOG_INSTR}, divide {FDIV_INSTR}, from the SASS) and a "
+            f"binary search of its tile ({PROBE_ALU} integer-ALU of "
+            f"{PROBE_INSTR} a probe); the ALU at {INT_ALU_LANES} and the "
+            f"issue at {ISSUE_LANES} lanes an SM a clock, {sms} SMs at "
+            f"{hz / 1e6:.0f} MHz")
+
+
+def erjs_sectors(w2d, r0, dg, seeds, trials) -> int:
+    """The distinct 32 B sectors of the stream that K7's trials read
+    (``ref.erjs_reads_ref``: the plain version's candidates, ``trials``
+    a walker), counted on the stream's own addresses."""
+    import torch
+    from repro_torch.kernels import ref
+
+    at = ref.erjs_reads_ref(w2d, r0, dg, seeds, trials)
+    base = w2d.data_ptr() % int(SECTOR_BYTES)
+    return int(torch.unique(torch.div(base + 4 * at, int(SECTOR_BYTES),
+                                      rounding_mode="floor")).numel())
+
+
+def erjs_block_work(trials, sectors: int):
+    """(bytes, integer-ALU instructions, instructions) of K7: per walker
+    row0, deg, bound, seed in and two outputs out (36 B) and its key's
+    parity; each distinct sector its trials read once (``sectors``, of
+    SECTOR_BYTES: a random 4 B read moves one, and trials on one row or
+    of walkers that share a row may share it); per trial the trial loop's
+    instructions (ERJS_TRIAL_*, from the SASS)."""
     import torch
 
     t = float(trials.to(torch.float64).sum())
-    return 36.0 * trials.numel() + 4.0 * t, t * (THREEFRY_OPS + 10)
+    n = float(trials.numel())
+    return (36.0 * n + SECTOR_BYTES * sectors,
+            n * PARITY_ALU + t * ERJS_TRIAL_ALU,
+            n * PARITY_INSTR + t * ERJS_TRIAL_INSTR)
+
+
+def erjs_block_note() -> str:
+    """How K7's pipe bound was counted, for its rows."""
+    sms, hz = sm_rate()
+    return (f"per walker 36 B of inputs and outputs; each distinct "
+            f"{SECTOR_BYTES:g} B sector the trials read, once (the plain "
+            f"version's candidates); per trial {ERJS_TRIAL_ALU} integer-ALU "
+            f"of {ERJS_TRIAL_INSTR} instructions (the trial loop in the "
+            f"SASS: Threefry, two uniforms, the candidate, its address, the "
+            f"test); the ALU at {INT_ALU_LANES} and the issue at "
+            f"{ISSUE_LANES} lanes an SM a clock, {sms} SMs at "
+            f"{hz / 1e6:.0f} MHz")
 
 
 def on_hub_rows(nodes, degs):
@@ -2253,26 +2369,87 @@ def check_equal(name: str, got, want, n: int) -> None:
                  f"{int((g != w).sum())} of {n} walkers")
 
 
-def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
-    """Phase 2b: the standalone ops on the tile-aligned stream of the whole
-    graph — K6 and K7 over (a) one walker per node at its own row and (b)
-    the lanes of the adaptive deepwalk main run after ``MID_STEP`` steps
-    (hub-heavy), and K3's and K5's aligned entries over (a).  Each drive
-    is counted; then every kernel is held bitwise against its plain
-    version on the card (K6 on (b): at most ``OPS_PLAIN_LANES`` walkers,
-    the ``OPS_HUB_LANES`` largest rows among them) and timed.  Returns
-    (rows, launches) keyed by (kernel, walker set)."""
+def ops_sets(graph, deepwalk):
+    """(w2d, row0, degs, sets): the aligned weight stream of the whole
+    graph (built on the host) and the ops' walker sets, ``{label: (nodes,
+    key)}``: (a) ``all_rows``, one walker per node at its own row, and (b)
+    ``deepwalk_lanes``, the lanes of the adaptive deepwalk main run
+    ``deepwalk`` after ``MID_STEP`` steps (hub-heavy)."""
     import torch
     from repro_torch.core.ctxutil import degrees_of
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
 
-    dev = graph.device
     t0 = time.perf_counter()
     w2d, row0, degs = ops.graph_aligned_weights(graph)
     torch.cuda.synchronize()
     log(f"ops: aligned weight stream R={w2d.shape[0]} rows x 128 "
         f"({w2d.numel() * 4 / 2**30:.3f} GiB) built on the host in "
         f"{time.perf_counter() - t0:.1f} s")
+    state = mid_walk_state(deepwalk, MID_STEP["deepwalk"])
+    lanes = state.alive & (degrees_of(graph, state.cur) > 0)
+    nodes_b = state.cur[lanes].contiguous()
+    nodes_a = torch.arange(graph.num_nodes, device=graph.device)
+    return w2d, row0, degs, {"all_rows": (nodes_a, 1),
+                             "deepwalk_lanes": (nodes_b, 2)}
+
+
+def check_ervs_tables(w2d, r0, dg, label: str) -> dict:
+    """K6's plan and tables on a walker set against their plain versions
+    (``ref.ervs_leaders_ref``, ``ref.ervs_tile_tables_ref``), bitwise:
+    the leaders, every tile sum, first counted position and M entry.
+    Returns the tables' sizes and the plain versions' time."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    got = ops.ervs_tile_tables(w2d, r0, dg)
+    lead, ms_a = cuda_once(lambda: ref.ervs_leaders_ref(
+        r0, dg, w2d.shape[0]))
+    if not torch.equal(got[0], lead):
+        fail(f"ervs_block_select [{label}]: {got[0].numel()} leaders, the "
+             f"plain plan has {lead.numel()}")
+    want, ms_b = cuda_once(lambda: ref.ervs_tile_tables_ref(
+        w2d, r0[lead].contiguous(), dg[lead].contiguous()))
+    for name, a, b in zip(("tile sums", "first positions", "M"), got[1:],
+                          want):
+        if not torch.equal(a, b):
+            fail(f"ervs_block_select [{label}]: the table pass's {name} "
+                 f"differ from the plain version's at "
+                 f"{int((a != b).sum())} of {b.numel()} entries")
+    return dict(jobs=int(lead.numel()), tiles=int(want[0].numel()),
+                m_entries=int(want[2].numel()), tables_plain_ms=ms_a + ms_b)
+
+
+def ervs_peak(w2d, r0, dg, seeds) -> float:
+    """Device memory one K6 call takes at its peak beyond its inputs and
+    outputs, in bytes: its scratch dropped first, so the call allocates
+    it again."""
+    import torch
+    from repro_torch.kernels import build, ops
+
+    build.drop_scratch("ervs_block.")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = ops.ervs_select(w2d, r0, dg, seeds)
+    torch.cuda.synchronize()
+    return float(torch.cuda.max_memory_allocated() - before
+                 - sum(o.numel() * o.element_size() for o in out))
+
+
+def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
+    """Phase 2b: the standalone ops on the tile-aligned stream of the whole
+    graph — K6 and K7 over the sets of ``ops_sets``, and K3's and K5's
+    aligned entries over (a).  Each drive is counted; then every kernel is
+    held bitwise against its plain version on the card (K6 on (b): at
+    most ``OPS_PLAIN_LANES`` walkers, the ``OPS_HUB_LANES`` largest rows
+    among them; K6's tables on every leader of both sets) and timed.
+    Returns (rows, launches) keyed by (kernel, walker set)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dev = graph.device
+    t_phase = time.perf_counter()
+    w2d, row0, degs, sets = ops_sets(graph, deepwalk)
     t0 = time.perf_counter()
     cdf2d, prob2d, alias2d, _, _ = ops.aligned_precomp_tables(
         tables, graph.indptr)
@@ -2280,13 +2457,6 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
     log(f"ops: aligned CDF, prob and alias streams built in "
         f"{time.perf_counter() - t0:.1f} s")
     h_max = deepwalk.sampler_ctx.stats.h_max
-    V = graph.num_nodes
-    nodes_a = torch.arange(V, device=dev)
-    state = mid_walk_state(deepwalk, MID_STEP["deepwalk"])
-    lanes = state.alive & (degrees_of(graph, state.cur) > 0)
-    nodes_b = state.cur[lanes].contiguous()
-    del state
-    sets = {"all_rows": (nodes_a, 1), "deepwalk_lanes": (nodes_b, 2)}
     rows, launches, res = {}, {}, {}
     for label, (nodes, key) in sets.items():
         r0, dg, seeds = ops_walkers(row0, degs, nodes, key)
@@ -2311,21 +2481,28 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
                 fail(f"ops [{label}] never launched {name}")
             launches[name, label] = counts[name]
         res[label] = (r0, dg, seeds, bnd, tot, out)
+    spent = dict.fromkeys(("K7", "aligned K3/K5", "plain K6", "K6 tables",
+                           "K6 times and peak"), 0.0)
     for label, (r0, dg, seeds, bnd, tot, out) in res.items():
         n = r0.numel()
         trials, rounds = OPS_ERJS_BUDGET
         # K7, K3 and K5 on every walker of the set
+        t0 = time.perf_counter()
         want, plain_ms = cuda_once(lambda: ref.erjs_select_ref(
             w2d, r0, dg, bnd, seeds, trials, rounds))
         check_equal(f"erjs_block_select [{label}]",
                     out["erjs_block_select"], want, n)
         ms = cuda_ms(lambda: ops.erjs_select(w2d, r0, dg, bnd, seeds, trials,
                                              rounds), reps)
-        b_ms, b_by = bound(*erjs_block_work(want[1]))
+        sectors = erjs_sectors(w2d, r0, dg, seeds, want[1])
+        b_ms, b_by = pipe_bound(*erjs_block_work(want[1], sectors))
         rows["erjs_block_select", label] = dict(
             lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             checked=n, accepted=int((want[0] >= 0).sum()),
-            mean_trials=float(want[1].double().mean()))
+            mean_trials=float(want[1].double().mean()),
+            sectors_per_walker=sectors / n, bound_note=erjs_block_note())
+        t1 = time.perf_counter()
+        spent["K7"] += t1 - t0
         if label == "all_rows":
             rejected = int(alias_rejected(
                 seeds, dg, out["alias_pick_aligned"][0]).sum())
@@ -2348,7 +2525,10 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
                     cold_ms=cold_ms(run, reps), plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, checked=n,
                     bound_note=draw_note(kind, ALIGNED_DRAW_BYTES))
-        # K6: every walker of (a); the largest rows and others of (b)
+        t0 = time.perf_counter()
+        spent["aligned K3/K5"] += t0 - t1
+        # K6: every walker of (a); the largest rows and others of (b); its
+        # tables on every leader of both
         got = out["ervs_block_select"]
         if label == "all_rows":
             idx = torch.arange(n, device=dev)
@@ -2359,20 +2539,37 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
             seeds[idx].contiguous()))
         check_equal(f"ervs_block_select [{label}]",
                     tuple(x[idx] for x in got), want, idx.numel())
-        ms = cuda_ms(lambda: ops.ervs_select(w2d, r0, dg, seeds),
-                     reps if label == "all_rows" else OPS_HUB_REPS)
-        b_ms, b_by = bound(*ervs_block_work(sets[label][0], dg, got[1],
-                                            got[2]))
+        t1 = time.perf_counter()
+        tabs = check_ervs_tables(w2d, r0, dg, label)
+        t2 = time.perf_counter()
+        spent["plain K6"] += t1 - t0
+        spent["K6 tables"] += t2 - t1
+        run = lambda: ops.ervs_select(w2d, r0, dg, seeds)
+        ms = cuda_ms(run, reps)
+        table_ms = cuda_ms(lambda: ops._ervs_tables(w2d, r0, dg), reps)
+        b_ms, b_by = pipe_bound(*ervs_block_work(sets[label][0], dg, got[1],
+                                                 got[2]))
         rows["ervs_block_select", label] = dict(
-            lanes=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            lanes=n, ms=ms, cold_ms=cold_ms(run, reps), table_ms=table_ms,
+            peak_mib=ervs_peak(w2d, r0, dg, seeds) / 2**20,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             checked=int(idx.numel()),
             mean_draws=float(got[1].double().mean()),
             mean_jumped=float(got[2].double().mean()),
-            mean_deg=float(dg.double().mean()))
+            mean_deg=float(dg.double().mean()), **tabs,
+            bound_note=ervs_block_note())
+        spent["K6 times and peak"] += time.perf_counter() - t2
     for (name, label), r in rows.items():
         extra = "".join(f", {k} {r[k]:.4f}" for k in (
-            "mean_deg", "mean_draws", "mean_jumped", "mean_trials")
+            "mean_deg", "mean_draws", "mean_jumped", "mean_trials",
+            "sectors_per_walker")
             if k in r)
+        if "table_ms" in r:
+            extra += (f"; plan and table pass {r['table_ms']:.4f} ms of the "
+                      f"call ({r['jobs']} distinct rows, {r['tiles']} tiles, "
+                      f"{r['m_entries']} M entries, bitwise equal to the "
+                      f"plain tables, {r['tables_plain_ms']:.1f} ms), peak "
+                      f"device memory of a call {r['peak_mib']:.1f} MiB")
         log(f"time {name} [{label}]: {r['lanes']} walkers, kernel "
             f"{r['ms']:.4f} ms{cold_text(r)}, plain {r['plain_ms']:.4f} ms "
             f"(on {r['checked']} walkers, bitwise equal), bound "
@@ -2380,6 +2577,8 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
             + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
                else ""))
     fig12a_on_card(dev)
+    log(f"ops: phase 2b took {time.perf_counter() - t_phase:.1f} s, of "
+        f"which " + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
     return rows, launches
 
 
@@ -2628,7 +2827,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "lanes": r["lanes"],
             "checked": r["checked"], "mismatches": 0,
-            **{k: r[k] for k in ("cold_ms", "bound_note") if k in r}})
+            **{k: r[k] for k in ("cold_ms", "bound_note", "table_ms",
+                                 "peak_mib") if k in r}})
     for (name, label), r in lm_rows.items():
         src, replaces = SOURCES[name]
         kernels.append({
@@ -2638,6 +2838,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
+            "bound_note": r["bound_note"],
             "lanes": r["lanes"], "vocab": r["vocab"], "mismatches": 0})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

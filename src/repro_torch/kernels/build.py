@@ -124,8 +124,12 @@ _SIGNATURES = {
     "megastep": [("repro_fused_epoch",
                   [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 9
                   + [_L] + [_P] * 3 + [_I, _I, _I, _I, _I, _L] + [_P] * 8)],
-    "ervs_block": [("repro_ervs_block_select",
-                    [_P] * 4 + [_I, _L] + [_P] * 4)],
+    "ervs_block": [("repro_ervs_block_plan",
+                    [_P, _P, _I, _L] + [_P] * 8),
+                   ("repro_ervs_block_tables",
+                    [_P, _P, _P, _L, _P, _I, _I] + [_P] * 7),
+                   ("repro_ervs_block_walk",
+                    [_P] * 4 + [_I, _L] + [_P] * 11)],
     "erjs_block": [("repro_erjs_block_select",
                     [_P] * 5 + [_I, _L, _I] + [_P] * 3)],
     "token_sample": [("repro_token_sample",
@@ -161,6 +165,14 @@ def scratch(name: str, device, stream: int, numel: int, dtype):
     if t is None or t.numel() < numel:
         t = SCRATCH[key] = torch.zeros(numel, dtype=dtype, device=device)
     return t
+
+
+def drop_scratch(prefix: str) -> None:
+    """Free the scratch tensors whose names start with ``prefix`` (a
+    kernel's, as in ``"ervs_block."``): its next launch allocates them
+    anew."""
+    for key in [k for k in SCRATCH if k[0].startswith(prefix)]:
+        del SCRATCH[key]
 
 
 def check(err: int, name: str) -> None:

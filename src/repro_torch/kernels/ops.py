@@ -27,6 +27,7 @@ tensors on the requested device.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Tuple
 
 import numpy as np
@@ -148,23 +149,104 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _ervs_tables(w2d, row0, degs):
+    """K6's plan and table pass on CUDA tensors: the leaders of the
+    distinct tabled rows, each walker's job, and the tables (tile sums,
+    first counted positions, M), in the layout the walk kernel reads.
+    Reads the plan's three counts back to size the tables (one
+    synchronisation).  Scratch is kept across calls (``build.scratch``);
+    what it holds is rebuilt by every call."""
+    dev = w2d.device
+    W, R = row0.shape[0], w2d.shape[0]
+    stream = _stream(dev)
+    lib = build.library("ervs_block")
+    sc = lambda name, numel, dtype: build.scratch(
+        f"ervs_block.{name}", dev, stream, max(numel, 1), dtype)
+    t = SimpleNamespace(
+        owner=sc("owner", R, torch.int32), src_of=sc("src_of", W, torch.int32),
+        tb_of=sc("tb_of", W, torch.int32), mb_of=sc("mb_of", W, torch.int64),
+        jobs=sc("jobs", W, torch.int32), order=sc("order", W, torch.int32),
+        # the three totals, then the walk order's 2 x 64 slot counters
+        counts=sc("counts", 3 + 64, torch.int64))
+    build.check(lib.repro_ervs_block_plan(
+        row0.data_ptr(), degs.data_ptr(), W, R,
+        *(x.data_ptr() for x in (t.owner, t.src_of, t.tb_of, t.mb_of, t.jobs,
+                                 t.order, t.counts)), stream),
+        "ervs_block_plan")
+    t.n_jobs, t.n_tiles, t.m_len = t.counts[:3].tolist()
+    if t.n_tiles >= 2 ** 31:
+        raise ValueError(f"ervs_select: {t.n_tiles} tiles to tabulate, "
+                         f"more than an int32 indexes")
+    t.tile_job = sc("tile_job", t.n_tiles, torch.int32)
+    t.sums = sc("sums", t.n_tiles, torch.float32)
+    t.firsts = sc("firsts", t.n_tiles, torch.int32)
+    t.mtab = sc("mtab", t.m_len, torch.float32)
+    if t.n_jobs:
+        build.check(lib.repro_ervs_block_tables(
+            w2d.data_ptr(), row0.data_ptr(), degs.data_ptr(), R,
+            t.jobs.data_ptr(), t.n_jobs, t.n_tiles, t.tb_of.data_ptr(),
+            t.mb_of.data_ptr(), t.tile_job.data_ptr(), t.sums.data_ptr(),
+            t.firsts.data_ptr(), t.mtab.data_ptr(), stream),
+            "ervs_block_tables")
+    return t
+
+
+def _ervs_check(w2d, row0, degs) -> int:
+    """K6's walker count, once its stream and rows are what its kernels
+    take."""
+    dev, W = w2d.device, row0.shape[0]
+    build.require(w2d, "w2d", torch.float32, (w2d.shape[0], LANES), dev)
+    build.require(row0, "row0", torch.int32, (W,), dev)
+    build.require(degs, "degs", torch.int32, (W,), dev)
+    if W and w2d.shape[0] == 0:  # a clipped row index needs a row
+        raise ValueError("w2d has no rows for the walkers to read")
+    if dev.type == "cuda" and w2d.data_ptr() % 16:
+        raise ValueError("w2d must be 16-byte aligned (K6 reads 16 B)")
+    return W
+
+
 def ervs_select(w2d, row0, degs, seeds):
     """Block-jump A-ExpJ reservoir selection, one walker per row (K6).
     Returns (offset [W] int32 or -1, draws [W] int32, jumped tiles [W]
     int32)."""
+    W = _ervs_check(w2d, row0, degs)
+    build.require(seeds, "seeds", torch.int64, (W, 2), w2d.device)
     if w2d.device.type == "cpu":
         return ref.ervs_select_ref(w2d, row0, degs, seeds)
-    W = _walkers(w2d, row0, degs, seeds, w2d.device)
     out = [torch.empty(W, dtype=torch.int32, device=w2d.device)
            for _ in range(3)]
     if W == 0:
         return tuple(out)
-    err = build.library("ervs_block").repro_ervs_block_select(
+    t = _ervs_tables(w2d, row0, degs)
+    err = build.library("ervs_block").repro_ervs_block_walk(
         w2d.data_ptr(), row0.data_ptr(), degs.data_ptr(), seeds.data_ptr(),
-        W, w2d.shape[0], *(o.data_ptr() for o in out), _stream(w2d.device))
+        W, w2d.shape[0],
+        *(x.data_ptr() for x in (t.src_of, t.tb_of, t.mb_of, t.sums,
+                                 t.firsts, t.mtab, t.order, *out)),
+        _stream(w2d.device))
     build.check(err, "ervs_block_select")
     build.LAUNCHES["ervs_block_select"] += 1
     return tuple(out)
+
+
+def ervs_tile_tables(w2d, row0, degs):
+    """K6's tables as the walk reads them, for checks: (leaders [J] int64,
+    ascending — the walkers whose rows the table pass tabulates, tile sums,
+    first counted positions, M), each table concatenated in leader order
+    as ``ref.ervs_tile_tables_ref`` gives them.  On CPU tensors, the plain
+    versions (``ref.ervs_leaders_ref``, ``ref.ervs_tile_tables_ref``); on
+    CUDA tensors, K6's plan and table kernels (not counted as a K6
+    launch: they are not the whole kernel)."""
+    W = _ervs_check(w2d, row0, degs)
+    if w2d.device.type == "cpu" or W == 0:
+        lead = ref.ervs_leaders_ref(row0, degs, w2d.shape[0])
+        return (lead, *ref.ervs_tile_tables_ref(w2d, row0[lead], degs[lead]))
+    t = _ervs_tables(w2d, row0, degs)
+    lead = torch.sort(t.jobs[:t.n_jobs].to(torch.int64)).values
+    d = degs[lead].to(torch.int64)
+    tiles = ref._ranges(t.tb_of[lead], (d + ref.TILE - 1) // ref.TILE)
+    ms = ref._ranges(t.mb_of[lead], (d + 31) // 32 * 32)
+    return lead, t.sums[tiles], t.firsts[tiles], t.mtab[ms]
 
 
 def erjs_select(w2d, row0, degs, bounds, seeds, trials: int = 8,

@@ -54,6 +54,10 @@ from repro_torch.kernels.prng import MASK32, uniform_01, uniform_pair_01
 LANES = 128
 SUBLANES = 8
 TILE = LANES * SUBLANES  # 1024 weights per tile
+#: rows of more weights are K6's "tabled" rows, whose tile sums and prefix
+#: maxima its table pass builds once per distinct row; a walker on a
+#: shorter row reads its row itself (kShortMax in csrc/ervs_block.cu)
+ERVS_SHORT_MAX = 64
 ERVS_SALT = 0x9E3779B9
 ERJS_SALT = 0x00C0FFEE
 ITS_SALT = 0x175CDF
@@ -311,6 +315,79 @@ def _ervs_tile(flat, r0, deg, k0, k1, st, idx, t: int, m: int,
     t_rem[g] = tr - (bsum - base)
 
 
+def ervs_leaders_ref(row0: torch.Tensor, degs: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """The walkers that lead K6's table jobs (the plain version of its
+    plan): among walkers whose rows hold more than ``ERVS_SHORT_MAX``
+    weights,
+    the largest walker index on each clipped row slot, and every walker
+    whose (row0, deg) differs from its slot's leader's.  Returns their
+    indices [J] int64, ascending."""
+    n = row0.shape[0]
+    ids = torch.arange(n, device=row0.device)
+    tabled = (degs > ERVS_SHORT_MAX).nonzero().squeeze(1)
+    slot = row0.to(torch.int64)[tabled].clamp(0, rows - 1)
+    lead = torch.full((rows,), -1, dtype=torch.int64, device=row0.device)
+    lead = lead.scatter_reduce(0, slot, ids[tabled], "amax")[slot]
+    own = (lead == tabled) | (row0[lead] != row0[tabled]) \
+        | (degs[lead] != degs[tabled])
+    return tabled[own]
+
+
+def _ranges(starts: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Concatenated ``arange(s, s + l)`` for each (s, l), int64."""
+    lens = lens.to(torch.int64)
+    offs = torch.cumsum(lens, 0) - lens
+    total = int(lens.sum())
+    return torch.arange(total, device=starts.device) + torch.repeat_interleave(
+        starts.to(torch.int64) - offs, lens, output_size=total)
+
+
+def ervs_tile_tables_ref(w2d: torch.Tensor, row0: torch.Tensor,
+                         degs: torch.Tensor):
+    """The tables K6's table pass builds for rows (``row0``, ``degs``)
+    [J], concatenated in row order: per tile of each row (its tiles in
+    order) the sum in XLA's order (float32) and ``first``, the first
+    position of a positive weight whose prefix sum is a number (int32, -1
+    without); per row ``roundup32(deg)`` entries of M (float32), tile by
+    tile: M[p] is the largest prefix sum (base-16 order) of such a
+    position q <= p, -inf before ``first``, and stays flat past the valid
+    count.  M is non-decreasing where the prefix sums are not; at a
+    crossing, the first p with M[p] >= target is the first positive
+    weight whose prefix sum reaches the target, and M[p] is that prefix."""
+    dev = w2d.device
+    flat = w2d.reshape(-1)
+    R = flat.numel() // LANES
+    deg = degs.to(torch.int64).clamp_min(0)
+    nt = torch.div(deg + TILE - 1, TILE, rounding_mode="floor")
+    tile_of = _ranges(torch.zeros_like(nt), nt)  # t within its row
+    row_of = torch.repeat_interleave(torch.arange(deg.numel(), device=dev),
+                                     nt)
+    valid = (deg[row_of] - tile_of * TILE).clamp(max=TILE)
+    start = row0.to(torch.int64)[row_of] + tile_of * SUBLANES
+    cols = torch.arange(TILE, device=dev)
+    sums, firsts, ms = [], [], []
+    step = max(1, _CHUNK_ELEMS // TILE)
+    for c in range(0, valid.numel(), step):
+        v, s0 = valid[c:c + step, None], start[c:c + step, None]
+        rows = (s0 + torch.div(cols, LANES, rounding_mode="floor")).clamp(
+            0, R - 1)
+        w = torch.where(cols < v, flat[rows * LANES + cols % LANES],
+                        _f32(0.0, dev))
+        cs = xla_cumsum(w)
+        counted = (w > 0) & ~torch.isnan(cs)
+        has = counted.any(dim=1)
+        first = torch.where(has, counted.to(torch.int8).argmax(dim=1), -1)
+        m = torch.where(counted, cs, float("-inf")).cummax(dim=1).values
+        sums.append(xla_sum(w))
+        firsts.append(first.to(torch.int32))
+        ms.append(m[cols < (v + 31) // 32 * 32])
+    cat = lambda xs, dtype: torch.cat(xs) if xs else torch.empty(
+        0, dtype=dtype, device=dev)
+    return (cat(sums, torch.float32), cat(firsts, torch.int32),
+            cat(ms, torch.float32))
+
+
 def ervs_select_semantic(w2d: torch.Tensor, row0: torch.Tensor,
                          degs: torch.Tensor, generator: torch.Generator,
                          max_deg: int) -> torch.Tensor:
@@ -352,20 +429,41 @@ def erjs_select_ref(w2d: torch.Tensor, row0: torch.Tensor,
     for t in range(trials * max_rounds):
         if not live.numel():
             break
-        d = deg[live]
-        u_idx, u_acc = uniform_pair_01(seeds[live, 0], seeds[live, 1], t,
-                                       ERJS_SALT)
-        cand = torch.minimum((u_idx * d.to(torch.float32)).to(torch.int64),
-                             d - 1)
-        rows = row0[live].to(torch.int64) + torch.div(
-            cand, LANES, rounding_mode="floor")
-        w = flat[rows.clamp(0, flat.numel() // LANES - 1) * LANES
-                 + cand % LANES]
+        cand, at, u_acc = _erjs_trial(w2d, row0, deg, seeds, live, t)
+        w = flat[at]
         ok = (u_acc * bounds[live] <= w) & (w > 0)
         used[live] = t + 1
         off[live[ok]] = cand[ok]
         live = live[~ok]
     return off.to(torch.int32), used.to(torch.int32)
+
+
+def _erjs_trial(w2d, row0, deg, seeds, live, t: int):
+    """Trial ``t`` of the walkers ``live``: (candidate offset, the flat
+    stream index of its weight, u_acc)."""
+    d = deg[live]
+    u_idx, u_acc = uniform_pair_01(seeds[live, 0], seeds[live, 1], t,
+                                   ERJS_SALT)
+    cand = torch.minimum((u_idx * d.to(torch.float32)).to(torch.int64), d - 1)
+    rows = row0[live].to(torch.int64) + torch.div(cand, LANES,
+                                                  rounding_mode="floor")
+    at = rows.clamp(0, w2d.shape[0] - 1) * LANES + cand % LANES
+    return cand, at, u_acc
+
+
+def erjs_reads_ref(w2d: torch.Tensor, row0: torch.Tensor,
+                   degs: torch.Tensor, seeds: torch.Tensor,
+                   used: torch.Tensor) -> torch.Tensor:
+    """The flat stream indices of the weights K7's trials read: trial t <
+    ``used[i]`` of walker i (``used`` as ``erjs_select_ref`` returns it)
+    reads its candidate's weight.  Returns [sum(used)] int64, trial by
+    trial (what a bound counts K7's random reads from)."""
+    deg = degs.to(torch.int64)
+    out = [torch.empty(0, dtype=torch.int64, device=w2d.device)]
+    for t in range(int(used.max()) if used.numel() else 0):
+        live = (used > t).nonzero().squeeze(1)
+        out.append(_erjs_trial(w2d, row0, deg, seeds, live, t)[1])
+    return torch.cat(out)
 
 
 # ---------------------------------------------------- precomputed tables

@@ -437,3 +437,132 @@ def table_walkers(indptr, per: int, seed: int):
     kd = np.concatenate([random_keys(V * per, seed), np.tile(top, (V, 1)),
                          random_keys(200, seed + 1)])
     return cur.astype(np.int64), kd
+
+
+#: row lengths K6's tables and walk treat apart: one weight, a 16-chunk,
+#: a 32-window and their edges, a tile and its edges, two tiles and one
+#: more weight; and a hub
+BLOCK_ROW_LENGTHS = (1, 16, 17, 32, 33, 1023, 1024, 1025, 2049)
+BLOCK_HUB_LENGTH = 20_000
+#: kinds of weights on those rows
+BLOCK_ROW_KINDS = ("uniform", "plateaus", "pareto")
+
+
+def block_rows(kind: str, seed: int):
+    """K6's hand-built rows: (values, indptr) as numpy arrays, two rows of
+    each of ``BLOCK_ROW_LENGTHS`` and one of ``BLOCK_HUB_LENGTH``.  In the
+    aligned layout a last tile spans the stream rows of the rows after it,
+    whose positive weights it must not read.  Kinds: ``uniform`` U(0.1,
+    5); ``plateaus`` the same with runs of zeros that straddle 16-chunk
+    and 32-window boundaries (positions 14-18, 30-34, 47-49, 250-262, 1020
+    -1030 of every tile), weights of 1e-7 to 1e-4 at the other 16-chunk
+    starts past position 256 (where the base-16 prefix sums associate
+    differently, so they fall below the one before) and one row of zeros;
+    ``pareto`` heavy tails."""
+    rng = np.random.default_rng(seed)
+    deg = np.array([d for d in BLOCK_ROW_LENGTHS for _ in range(2)]
+                   + [BLOCK_HUB_LENGTH], np.int64)
+    indptr = np.zeros(deg.size + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    E = int(indptr[-1])
+    if kind == "pareto":
+        vals = (rng.pareto(1.2, E) + 0.05).astype(np.float32)
+    else:
+        vals = rng.uniform(0.1, 5.0, E).astype(np.float32)
+    if kind == "plateaus":
+        within = np.arange(E) - np.repeat(indptr[:-1], deg)
+        p = within % 1024
+        runs = ((p >= 14) & (p <= 18)) | ((p >= 30) & (p <= 34)) \
+            | ((p >= 47) & (p <= 49)) | ((p >= 250) & (p <= 262)) \
+            | (p >= 1020)
+        vals[runs] = 0.0
+        # tiny weights at the 16-chunk starts past the first 256 of a
+        # tile, where the prefix sum may fall below the one before
+        tiny = (p >= 256) & (p % 16 == 0) & ~runs
+        vals[tiny] = rng.uniform(1e-7, 1e-4, int(tiny.sum())).astype(
+            np.float32)
+        vals[indptr[8]:indptr[9]] = 0.0  # a row of 33 zeros
+    return vals, indptr
+
+
+def block_walkers(n_rows: int, seed: int):
+    """Node indices of K6's walkers on ``n_rows`` rows: two on every row,
+    60 on the last (the hub), 20 on the row of 2,049, in a random
+    order."""
+    rng = np.random.default_rng(seed)
+    nodes = np.concatenate([np.repeat(np.arange(n_rows), 2),
+                            np.full(60, n_rows - 1), np.full(20, n_rows - 2)])
+    return rng.permutation(nodes)
+
+
+def clipped_block_inputs(seed: int):
+    """(w2d [64, 128] float32, row0, degs) of walkers whose rows start
+    before the stream, past it, or run past its end, several on each
+    (row0, deg), some sharing a row0 with another degree; a fifth of the
+    weights zero."""
+    rng = np.random.default_rng(seed)
+    w2d = rng.uniform(0.1, 5.0, (64, 128)).astype(np.float32)
+    w2d[rng.random(w2d.shape) < 0.2] = 0.0
+    r0, dg = np.meshgrid([-20, -1, 0, 3, 56, 60, 63, 70],
+                         [1, 17, 300, 1024, 1500, 3000])
+    r0 = np.repeat(r0.ravel(), 3).astype(np.int32)
+    dg = np.repeat(dg.ravel(), 3).astype(np.int32)
+    return w2d, r0, dg
+
+
+def ervs_model(w2d, row0, degs, seeds):
+    """A plain-torch model of K6's decision order: per walker, the tile
+    sums of ``ref.ervs_tile_tables_ref`` retire tiles, and a crossing's
+    hit is the first p >= first with M[p] >= target (a sorted search of
+    M, continued from the last hit), position 0 when there is none.
+    Returns (offset, draws, jumped) [W] int32, as ``ref.ervs_select_ref``
+    does."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prng import uniform_pair_01
+
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)
+    flat = w2d.reshape(-1)
+    R = flat.numel() // ref.LANES
+    out = np.zeros((3, row0.numel()), np.int32)
+    for i in range(row0.numel()):
+        deg = int(degs[i])
+        sums, firsts, m = ref.ervs_tile_tables_ref(w2d, row0[i:i + 1],
+                                                   degs[i:i + 1])
+        best_lk, t_rem = f32(float("-inf")), f32(0.0)
+        best_off, draws, jumped = -1, 0, 0
+        for t in range(sums.numel()):
+            s = sums[t]
+            if not (bool(s >= t_rem) and bool(s > 0)):
+                t_rem = t_rem - s
+                jumped += 1
+                continue
+            valid = min(deg - t * ref.TILE, ref.TILE)
+            row_t = int(row0[i]) + t * ref.SUBLANES
+            w_at = lambda p: flat[min(max(row_t + p // ref.LANES, 0), R - 1)
+                                  * ref.LANES + p % ref.LANES]
+            mt = m[t * ref.TILE:t * ref.TILE + valid]
+            first = int(firsts[t])
+            lo = valid if first < 0 else first
+            base = f32(0.0)
+            while bool(s - base >= t_rem):
+                target = base + t_rem
+                a = lo + int(torch.searchsorted(mt[lo:valid], target))
+                if a < valid:
+                    pos, base, lo = a, mt[a], a
+                else:
+                    pos, base = 0, w_at(0)
+                    lo = valid if first < 0 else first
+                w_m = w_at(pos)
+                u1, u2 = uniform_pair_01(seeds[i:i + 1, 0], seeds[i:i + 1, 1],
+                                         draws, ref.ERVS_SALT)
+                t_w = ref.xla_exp((w_m * best_lk).clamp(-80.0, 0.0))
+                uu = u1 if bool(best_lk == float("-inf")) else \
+                    ref.fma32(u1, f32(1.0) - t_w, t_w)
+                lk_new = ref.xla_log(uu.clamp(1e-38, 1.0)) \
+                    / torch.clamp(w_m, min=1e-30)
+                t_rem = (ref.xla_log(u2) / torch.clamp(lk_new, max=-1e-30))[0]
+                best_lk, best_off = lk_new[0], t * ref.TILE + pos
+                draws += 1
+            t_rem = t_rem - (s - base)
+        out[:, i] = best_off, draws, jumped
+    return tuple(torch.from_numpy(x) for x in out)
