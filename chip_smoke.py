@@ -54,7 +54,13 @@ Phases (any failure exits non-zero and prints no result line):
              bitwise against its plain versions (``ref.ervs_leaders_ref``,
              ``ref.ervs_tile_tables_ref``) on every leader of both sets,
              timed alone beside the whole call, and a call's peak device
-             memory is logged.  Then Fig. 12a's RNG-draw inputs (128
+             memory is logged.  The aligned K3 and K5 rows' bounds count
+             each distinct 32 B sector their plain versions read, once
+             (``ref.its_reads_ref`` / ``alias_reads_ref``), and torch's
+             gather of one entry of each of those sectors is timed beside
+             them (``gather_ms``: the card's rate for the same random
+             reads, not a library call for the draw; ``library_ms`` stays
+             null).  Then Fig. 12a's RNG-draw inputs (128
              walkers on rows of 512 and 4,096 weights): K6's mean draws
              and jumped tiles, bitwise against the plain version.
 3. check   — each kernel against its plain PyTorch version on the card, on
@@ -261,11 +267,13 @@ STAGED_NEEDS = {"ervs": ("ervs_select",), "erjs": ("erjs_select",),
 K4_EPOCH = 16
 # cold K4 launches of the table regimes timed in phase 5
 K4_COLD_REPS = 3
-# bytes a table draw's walker reads and writes beside its row's entries:
-# the engine's entries (cur and the result int64, the step key, the row's
-# bounds and total) and the aligned entries (row start, degree, total, the
-# seeds, the int32 result)
-ENGINE_DRAW_BYTES, ALIGNED_DRAW_BYTES = 44.0, 32.0
+# bytes a table draw's walker streams in and out beside its random reads:
+# the engine's entries (cur and the result int64, the step key) and the
+# aligned entries (row start, degree, total, the seeds, the int32 result)
+ENGINE_STREAM_BYTES, ALIGNED_DRAW_BYTES = 32.0, 32.0
+# the CDF block K3's engine entry and K4's ITS instance read whole after
+# their fence search: 16 float32 entries
+ITS_BLOCK_BYTES = 64.0
 # steps over which phase 5 holds K4's reservoir regime against its plain
 # version on every walker (~10^11 edges a step for deepwalk)
 K4_RESERVOIR_PLAIN_EPOCH = 1
@@ -489,70 +497,149 @@ def pipe_note(per_edge_bytes: float) -> str:
             f"clocks.max.sm)")
 
 
-def its_work(deg, walker_bytes: float):
+def fence_probes(start, deg):
+    """Reads of the fence search of K3's engine entry and K4's ITS
+    instance over rows [start, start + deg): a lower-bound binary search
+    of the fences of the row's blocks but its last (``probes`` less one,
+    no read where the row lies in one block)."""
+    import torch
+
+    from repro_torch.core.precomp import FENCE_BLOCK
+
+    s, d = start.to(torch.int64), deg.to(torch.int64)
+    fences = torch.where(d > 0, (s + d - 1) // FENCE_BLOCK - s // FENCE_BLOCK,
+                         0)
+    return (probes(fences) - 1).clamp_min(0)
+
+
+def its_work(n: int, n_probes: float, walker_bytes: float, sector_bytes:
+             float):
     """(bytes, integer-ALU instructions, instructions) of the ITS draw of
-    walkers on rows of ``deg`` entries: per walker ``walker_bytes`` (its
-    inputs, its result and the row's bounds and total), one Threefry, its
-    key's parity, the uniform and the draw's own work; per CDF probe of a
-    binary search (``probes``) 4 B and its compare and update."""
-    pr = float(probes(deg).sum())
-    n = float(deg.numel())
-    return (n * walker_bytes + 4.0 * pr,
+    ``n`` walkers: per walker ``walker_bytes`` streamed (inputs, result),
+    one Threefry, its key's parity, the uniform and the draw's own work;
+    ``sector_bytes`` of random reads in all; per probe of a binary search
+    (``n_probes`` in all) its compare and update."""
+    return (n * walker_bytes + sector_bytes,
             n * (THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU + ITS_DRAW_ALU)
-            + pr * PROBE_ALU,
+            + n_probes * PROBE_ALU,
             n * (THREEFRY_INSTR + PARITY_INSTR + UNIFORM_INSTR
-                 + ITS_DRAW_INSTR) + pr * PROBE_INSTR)
+                 + ITS_DRAW_INSTR) + n_probes * PROBE_INSTR)
 
 
-def alias_rejected(seeds, deg, off):
-    """Per walker: did the alias draw reject its column (and so need the
-    column's alias offset)?  ``seeds`` [n, 2] the draw's keys, ``deg``
-    the rows' degrees, ``off`` the offsets the draw picked."""
+def alias_columns(seeds, deg):
+    """Per walker: the column the alias draw reads (``seeds`` [n, 2] the
+    draw's keys, ``deg`` the rows' degrees)."""
     import torch
     from repro_torch.core.precomp import ALIAS_SALT
     from repro_torch.kernels.prng import uniform_pair_01
 
     u1, _ = uniform_pair_01(seeds[:, 0], seeds[:, 1], 0, ALIAS_SALT)
     d = deg.to(torch.int64)
-    col = torch.minimum((u1 * d.to(torch.float32)).to(torch.int64),
-                        (d - 1).clamp_min(0))
-    return (off >= 0) & (off != col)
+    return torch.minimum((u1 * d.to(torch.float32)).to(torch.int64),
+                         (d - 1).clamp_min(0))
 
 
-def alias_work(n: int, rejected: int, walker_bytes: float):
+def alias_rejected(seeds, deg, off):
+    """Per walker: did the alias draw reject its column (and so need the
+    column's alias offset)?  ``seeds`` [n, 2] the draw's keys, ``deg``
+    the rows' degrees, ``off`` the offsets the draw picked."""
+    return (off >= 0) & (off != alias_columns(seeds, deg))
+
+
+def alias_work(n: int, walker_bytes: float, sector_bytes: float):
     """(bytes, integer-ALU instructions, instructions) of the alias draw
-    of ``n`` walkers, ``rejected`` of which take their column's alias:
-    per walker ``walker_bytes`` (its inputs, its result and the row's
-    bounds and total), the column's keep probability (4 B), one Threefry,
-    its key's parity, two uniforms and the draw's own work; 4 B more per
-    rejected column."""
-    return (n * (walker_bytes + 4.0) + 4.0 * rejected,
+    of ``n`` walkers: per walker ``walker_bytes`` streamed (inputs,
+    result), one Threefry, its key's parity, two uniforms and the draw's
+    own work; ``sector_bytes`` of random reads in all."""
+    return (n * walker_bytes + sector_bytes,
             n * (THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU
                  + ALIAS_DRAW_ALU),
             n * (THREEFRY_INSTR + PARITY_INSTR + 2 * UNIFORM_INSTR
                  + ALIAS_DRAW_INSTR))
 
 
-def draw_note(kind: str, walker_bytes: float) -> str:
-    """How a pipe bound of a table draw was counted, for its row."""
+def table_draw_reads(kind: str, g, tables, cur, keys):
+    """What the table draws at nodes ``cur`` with step keys ``keys`` read
+    past their row's bounds and total, for the walkers that draw (degree
+    and total above 0): (those walkers' nodes, the table, its flat
+    indices read).  ``its``: both 32 B halves of the 64 B CDF block that
+    holds the picked offset (``its_offsets``, the plain version's);
+    ``alias``: the first word of the column's 8 B pair."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.core.precomp import FENCE_BLOCK, its_offsets
+
+    deg = degrees_of(g, cur)
+    draw = (deg > 0) & (tables.total[cur] > 0)
+    v, k = cur[draw], keys[draw]
+    start = g.indptr[v].to(torch.int64)
+    if kind == "its":
+        pos = start + its_offsets(g, tables, v, k)
+        blk = pos - pos % FENCE_BLOCK
+        at = torch.stack((blk, blk + FENCE_BLOCK // 2), 1).view(-1)
+        return v, tables.cdf, at.clamp_max(tables.cdf.numel() - 1)
+    return v, tables.alias_pair, 2 * (start + alias_columns(k, deg[draw]))
+
+
+def engine_draw_work(kind: str, g, tables, cur, keys):
+    """(bytes, integer-ALU instructions, instructions) of K3's (``its``)
+    or K5's (``alias``) engine entry on walkers at ``cur`` with step keys
+    ``keys``: per walker 32 B streamed (``ENGINE_STREAM_BYTES``); each
+    distinct 32 B sector of the 16 B node records, once; of the walkers
+    that draw, each distinct sector of K3's 64 B CDF blocks (after a fence
+    search that stays in L2: no DRAM bytes, its probes' instructions kept)
+    or of K5's 8 B pair words, once (``table_draw_reads``)."""
+    from repro_torch.core.ctxutil import degrees_of
+
+    n = cur.numel()
+    rec, _ = distinct_sectors(tables.draw_rows(g.indptr), 4 * cur)
+    v, table, at = table_draw_reads(kind, g, tables, cur, keys)
+    sectors = SECTOR_BYTES * (rec + distinct_sectors(table, at)[0])
+    if kind == "its":
+        n_probes = float(fence_probes(g.indptr[v], degrees_of(g, v)).sum())
+        return its_work(n, n_probes, ENGINE_STREAM_BYTES, sectors)
+    return alias_work(n, ENGINE_STREAM_BYTES, sectors)
+
+
+def draw_note(kind: str, entry: str) -> str:
+    """How a pipe bound of a table draw (``entry``: "engine" or
+    "aligned") was counted, for its row."""
     sms, hz = sm_rate()
     if kind == "its":
         alu = THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU + ITS_DRAW_ALU
         instr = THREEFRY_INSTR + PARITY_INSTR + UNIFORM_INSTR + ITS_DRAW_INSTR
-        what = (f"{alu} integer-ALU of {instr} instructions (Threefry from "
-                f"the SASS, the parity, the uniform, the target and the "
-                f"clip); per CDF probe of a binary search 4 B, {PROBE_ALU} "
-                f"integer-ALU of {PROBE_INSTR} instructions")
+        probe = "fence probe" if entry == "engine" else \
+            "probe of the plain binary search"
+        ops = (f"{alu} integer-ALU of {instr} instructions (Threefry from "
+               f"the SASS, the parity, the uniform, the target and the "
+               f"clip); per {probe} {PROBE_ALU} integer-ALU of "
+               f"{PROBE_INSTR} instructions")
     else:
         alu = THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU + ALIAS_DRAW_ALU
         instr = (THREEFRY_INSTR + PARITY_INSTR + 2 * UNIFORM_INSTR
                  + ALIAS_DRAW_INSTR)
-        what = (f"the column's keep probability (4 B), {alu} integer-ALU of "
-                f"{instr} instructions (Threefry from the SASS, the parity, "
-                f"two uniforms, the column, the compare); 4 B of alias "
-                f"offset per rejected column")
-    return (f"per walker {walker_bytes:g} B of inputs, result and row "
-            f"bounds, {what}; the ALU at {INT_ALU_LANES} and the issue at "
+        ops = (f"{alu} integer-ALU of {instr} instructions (Threefry from "
+               f"the SASS, the parity, two uniforms, the column, the "
+               f"compare)")
+    sector = f"{SECTOR_BYTES:g} B sector"
+    reads = {
+        ("its", "engine"): f"each distinct {sector} of the 16 B node "
+                           f"records, once; each distinct {sector} of the "
+                           f"drawing walkers' {ITS_BLOCK_BYTES:g} B CDF "
+                           f"blocks, once (the fence search stays in L2: no "
+                           f"DRAM bytes)",
+        ("alias", "engine"): f"each distinct {sector} of the 16 B node "
+                             f"records, once; each distinct {sector} of the "
+                             f"drawing walkers' 8 B pair words, once",
+        ("its", "aligned"): f"each distinct {sector} the plain binary "
+                            f"search reads, once (ref.its_reads_ref)",
+        ("alias", "aligned"): f"each distinct {sector} of the column's keep "
+                              f"probability, and of its alias offset where "
+                              f"the column is rejected, once "
+                              f"(ref.alias_reads_ref)"}[kind, entry]
+    walker = ENGINE_STREAM_BYTES if entry == "engine" else ALIGNED_DRAW_BYTES
+    return (f"per walker {walker:g} B of inputs and result streamed and "
+            f"{ops}; {reads}; the ALU at {INT_ALU_LANES} and the issue at "
             f"{ISSUE_LANES} lanes an SM a clock, {sms} SMs at "
             f"{hz / 1e6:.0f} MHz")
 
@@ -719,8 +806,11 @@ TRIAL_KERNELS = (("erjs", "erjs_round0_kernel"),
                  ("megastep", "fused_epoch_lanesILi1ELi0E"),
                  ("ervs_block", "ervs_walk_kernel"),
                  ("erjs_block", "erjs_block_kernel"))
-# the table draws' kernels (K3 and K5 on the CSR) whose code phase 1 logs
-DRAW_KERNELS = (("its", "its_kernel"), ("alias", "alias_kernel"))
+# the table draws' kernels whose code phase 1 logs: K3 and K5 on the CSR,
+# and their aligned entries (K3's instance for 16 B aligned streams)
+DRAW_KERNELS = (("its", "its_kernel"), ("alias", "alias_kernel"),
+                ("its", "its_aligned_kernelILb1E"),
+                ("alias", "alias_aligned_kernel"))
 
 
 def _cuobjdump(lib, what: str) -> str:
@@ -1668,13 +1758,13 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                 fail(f"its_search [{pname}] at main-path shapes: differs "
                      f"from its_offsets on {int((got != want).sum())} of "
                      f"{idx.numel()} lanes")
-            b_ms, b_by = pipe_bound(*its_work(degrees_of(g, cur),
-                                              ENGINE_DRAW_BYTES))
+            b_ms, b_by = pipe_bound(*engine_draw_work("its", g, eng.precomp,
+                                                      cur, keys))
             rows["its_search", pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 cold_ms=cold_ms(run, reps), plain_ms=plain_ms,
                 max_abs_err=0, mismatches=0, bound_ms=b_ms, bound_by=b_by,
-                bound_note=draw_note("its", ENGINE_DRAW_BYTES))
+                bound_note=draw_note("its", "engine"))
         del state, split
 
     for pname, eng in engines.items():
@@ -1708,8 +1798,10 @@ def k4_work(eng, state0, emitted, flags, args: dict, stats=None):
     degree and the step key (a Threefry and ~20 instructions, 4 more for
     hooks; the parity of its key, the walker's seed, once a walker) and
     the regime's work: eRJS proposals (``trial_ops``, ``trial_bytes``; 4 B
-    of bound), CDF probes or alias columns and their uniform, and the
-    least work of the row scans of fallbacks and stale rows
+    of bound), a table draw's uniform, its ``fence_probes`` and each
+    distinct 32 B sector, over the launch, of the row totals and of the
+    CDF blocks or pair words the draws read (``table_draw_reads``), once,
+    and the least work of the row scans of fallbacks and stale rows
     (``scan_ops``, 8 B an edge); a hooked program's state comes in and
     goes out once (4 B per lane each way).  With a ``stats`` dict, the
     rejection regime adds there what its trials did (``trial_stats``,
@@ -1730,6 +1822,7 @@ def k4_work(eng, state0, emitted, flags, args: dict, stats=None):
     tally = dict(pending=0, fallbacks=0, used=0.0, weighted=0.0, steps=0)
     cur, prev, step = state0.cur, state0.prev, state0.step
     stepped = torch.zeros(W, dtype=torch.bool, device=cur.device)
+    drawn, table_at = [], []
     for t in range(T):
         f = flags[:, t]
         bit = lambda b: ((f >> b) & 1).bool()
@@ -1769,17 +1862,24 @@ def k4_work(eng, state0, emitted, flags, args: dict, stats=None):
         else:
             pre = bit(S.PRECOMP)
             n_pre = float(pre.sum())
-            nbytes += 5.0 * n_live + 4.0 * n_pre
-            if kind == "precomp_its":  # uniform_01, then the search
-                pr = float(probes(degrees_of(g, cur[pre])).sum())
-                nbytes += 4.0 * pr
+            nbytes += 5.0 * n_live
+            # the rows' totals and the blocks or pair words, gathered for
+            # their distinct sectors over the launch
+            v, table, at = table_draw_reads(
+                "its" if kind == "precomp_its" else "alias", g,
+                args["tables"], cur[pre], fold_in(state0.rng[pre],
+                                                  step[pre]))
+            drawn.append(v)
+            table_at.append(at)
+            if kind == "precomp_its":  # uniform_01, the fences, one block
+                pr = float(fence_probes(g.indptr[v],
+                                        degrees_of(g, v)).sum())
                 alu += n_pre * (THREEFRY_ALU + PARITY_ALU + UNIFORM_ALU
                                 + ITS_DRAW_ALU) + PROBE_ALU * pr
                 instr += n_pre * (THREEFRY_INSTR + PARITY_INSTR
                                   + UNIFORM_INSTR + ITS_DRAW_INSTR) \
                     + PROBE_INSTR * pr
-            else:  # uniform_pair_01, the column and its alias
-                nbytes += 8.0 * n_pre
+            else:  # uniform_pair_01, the column's 8 B pair word
                 alu += n_pre * (THREEFRY_ALU + PARITY_ALU + 2 * UNIFORM_ALU
                                 + ALIAS_DRAW_ALU)
                 instr += n_pre * (THREEFRY_INSTR + PARITY_INSTR
@@ -1788,6 +1888,11 @@ def k4_work(eng, state0, emitted, flags, args: dict, stats=None):
         prev = torch.where(moved, cur, prev)
         cur = torch.where(moved, emitted[:, t].long(), cur)
         step = step + moved.long()
+    if drawn:
+        tables = args["tables"]
+        nbytes += SECTOR_BYTES * (
+            distinct_sectors(tables.total, torch.cat(drawn))[0]
+            + distinct_sectors(table, torch.cat(table_at))[0])
     if stats is not None and kind == "rejection":
         n = max(tally["steps"], 1)
         stats.update(pending=tally["pending"], fallbacks=tally["fallbacks"],
@@ -1808,11 +1913,18 @@ def k4_note(kind: str) -> str:
                          f"as much again per proposal with w > 0, as K2's "
                          f"bound counts them",
             "precomp_its": f"per table draw one Threefry, a parity, the "
-                           f"uniform and the draw's own work, per CDF probe "
-                           f"of a binary search 4 B, {PROBE_ALU} "
-                           f"integer-ALU of {PROBE_INSTR} instructions",
-            "precomp_alias": "per table draw one Threefry, a parity, two "
-                             "uniforms, the column and its alias (12 B)"}
+                           f"uniform and the draw's own work, per fence "
+                           f"probe (in L2: no DRAM bytes) {PROBE_ALU} "
+                           f"integer-ALU of {PROBE_INSTR} instructions; "
+                           f"each distinct {SECTOR_BYTES:g} B sector, over "
+                           f"the launch, of the row totals and of the "
+                           f"{ITS_BLOCK_BYTES:g} B CDF blocks the draws "
+                           f"read, once",
+            "precomp_alias": f"per table draw one Threefry, a parity, two "
+                             f"uniforms and the column; each distinct "
+                             f"{SECTOR_BYTES:g} B sector, over the launch, "
+                             f"of the row totals and of the 8 B pair words "
+                             f"the draws read, once"}
     return (f"per live step 8 B, the step key (a Threefry and ~20 "
             f"instructions); {what[kind]}; the scans of fallbacks and stale "
             f"rows as the plain scan's ({THREEFRY_ALU + UNIFORM_ALU} "
@@ -1941,13 +2053,13 @@ def time_fused(fused: dict, pname: str) -> dict:
                      f"from alias_offsets on {int((got != want).sum())} of "
                      f"{idx.numel()} lanes")
             rejected = int(alias_rejected(keys, degrees_of(g, cur), got).sum())
-            b_ms, b_by = pipe_bound(*alias_work(idx.numel(), rejected,
-                                                ENGINE_DRAW_BYTES))
+            b_ms, b_by = pipe_bound(*engine_draw_work("alias", g, tables,
+                                                      cur, keys))
             rows["alias_pick", pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 cold_ms=cold_ms(run, 5), plain_ms=plain_ms, max_abs_err=0,
                 mismatches=0, bound_ms=b_ms, bound_by=b_by,
-                bound_note=draw_note("alias", ENGINE_DRAW_BYTES),
+                bound_note=draw_note("alias", "engine"),
                 rejected=rejected)
         del state
     for (name, pname), r in rows.items():
@@ -2280,17 +2392,55 @@ def ervs_block_note() -> str:
             f"{hz / 1e6:.0f} MHz")
 
 
+def distinct_sectors(stream, at):
+    """(the number of distinct 32 B sectors of ``stream`` that its flat
+    indices ``at`` read, counted on the stream's own addresses; one index
+    in each of them, the first read of it, in read order)."""
+    import torch
+
+    sec = torch.div(stream.data_ptr() % int(SECTOR_BYTES) + 4 * at,
+                    int(SECTOR_BYTES), rounding_mode="floor")
+    uniq, inv = torch.unique(sec, return_inverse=True)
+    first = torch.full((uniq.numel(),), at.numel(), dtype=torch.int64,
+                       device=at.device).scatter_reduce_(
+        0, inv, torch.arange(at.numel(), device=at.device), "amin")
+    return uniq.numel(), at[first.sort().values]
+
+
 def erjs_sectors(w2d, r0, dg, seeds, trials) -> int:
     """The distinct 32 B sectors of the stream that K7's trials read
     (``ref.erjs_reads_ref``: the plain version's candidates, ``trials``
     a walker), counted on the stream's own addresses."""
-    import torch
     from repro_torch.kernels import ref
 
-    at = ref.erjs_reads_ref(w2d, r0, dg, seeds, trials)
-    base = w2d.data_ptr() % int(SECTOR_BYTES)
-    return int(torch.unique(torch.div(base + 4 * at, int(SECTOR_BYTES),
-                                      rounding_mode="floor")).numel())
+    return distinct_sectors(w2d, ref.erjs_reads_ref(w2d, r0, dg, seeds,
+                                                    trials))[0]
+
+
+def aligned_draw_work(kind: str, streams, r0, dg, tot, seeds):
+    """What the plain version of K3's (``its``) or K5's (``alias``)
+    aligned entry reads, and its bound's work: a namespace of ``reads``
+    (the probes or columns read), ``sectors`` (the distinct 32 B sectors
+    of the CDF, or of the prob and alias streams, in all), ``firsts``
+    ([(stream, one index in each distinct sector it reads, in read
+    order), ...]) and ``work`` (``its_work`` / ``alias_work``: 32 B
+    streamed a walker and each distinct sector once)."""
+    from repro_torch.kernels import ref
+
+    if kind == "its":
+        reads = [(streams[0], ref.its_reads_ref(streams[0], r0, dg, tot,
+                                                seeds))]
+    else:
+        reads = list(zip(streams, ref.alias_reads_ref(streams[0], r0, dg,
+                                                      tot, seeds)))
+    per = [(st, *distinct_sectors(st, at)) for st, at in reads]
+    n, n_reads = r0.numel(), sum(at.numel() for _, at in reads)
+    sectors = sum(count for _, count, _ in per)
+    work = its_work(n, n_reads, ALIGNED_DRAW_BYTES, SECTOR_BYTES * sectors) \
+        if kind == "its" else alias_work(n, ALIGNED_DRAW_BYTES,
+                                         SECTOR_BYTES * sectors)
+    return SimpleNamespace(reads=n_reads, sectors=sectors, work=work,
+                           firsts=[(st, first) for st, _, first in per])
 
 
 def erjs_block_work(trials, sectors: int):
@@ -2481,7 +2631,8 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
                 fail(f"ops [{label}] never launched {name}")
             launches[name, label] = counts[name]
         res[label] = (r0, dg, seeds, bnd, tot, out)
-    spent = dict.fromkeys(("K7", "aligned K3/K5", "plain K6", "K6 tables",
+    spent = dict.fromkeys(("K7", "aligned K3/K5", "their sectors",
+                           "their gathers", "plain K6", "K6 tables",
                            "K6 times and peak"), 0.0)
     for label, (r0, dg, seeds, bnd, tot, out) in res.items():
         n = r0.numel()
@@ -2504,29 +2655,36 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
         t1 = time.perf_counter()
         spent["K7"] += t1 - t0
         if label == "all_rows":
-            rejected = int(alias_rejected(
-                seeds, dg, out["alias_pick_aligned"][0]).sum())
-            for name, run, plain, work, kind in (
-                    ("its_search_aligned",
+            for name, kind, streams, run, plain in (
+                    ("its_search_aligned", "its", (cdf2d,),
                      lambda: ops.its_search(cdf2d, r0, dg, tot, seeds),
-                     lambda: ref.its_search_ref(cdf2d, r0, dg, tot, seeds),
-                     its_work(dg, ALIGNED_DRAW_BYTES), "its"),
-                    ("alias_pick_aligned",
+                     lambda: ref.its_search_ref(cdf2d, r0, dg, tot, seeds)),
+                    ("alias_pick_aligned", "alias", (prob2d, alias2d),
                      lambda: ops.alias_pick(prob2d, alias2d, r0, dg, tot,
                                             seeds),
                      lambda: ref.alias_pick_ref(prob2d, alias2d, r0, dg, tot,
-                                                seeds),
-                     alias_work(n, rejected, ALIGNED_DRAW_BYTES), "alias")):
+                                                seeds))):
+                t2 = time.perf_counter()
                 want, plain_ms = cuda_once(plain)
                 check_equal(f"{name} [{label}]", out[name], (want,), n)
-                b_ms, b_by = pipe_bound(*work)
+                ms, cold = cuda_ms(run, reps), cold_ms(run, reps)
+                t3 = time.perf_counter()
+                drawn = aligned_draw_work(kind, streams, r0, dg, tot, seeds)
+                b_ms, b_by = pipe_bound(*drawn.work)
+                t4 = time.perf_counter()
+                flats = [(st.view(-1), idx) for st, idx in drawn.firsts]
+                gather_ms = cuda_ms(lambda: [f[i] for f, i in flats], reps)
+                spent["aligned K3/K5"] += t3 - t2
+                spent["their sectors"] += t4 - t3
+                spent["their gathers"] += time.perf_counter() - t4
                 rows[name, label] = dict(
-                    lanes=n, ms=cuda_ms(run, reps),
-                    cold_ms=cold_ms(run, reps), plain_ms=plain_ms,
+                    lanes=n, ms=ms, cold_ms=cold, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, checked=n,
-                    bound_note=draw_note(kind, ALIGNED_DRAW_BYTES))
+                    reads_per_walker=drawn.reads / n,
+                    sectors_per_walker=drawn.sectors / n,
+                    gather_ms=gather_ms,
+                    bound_note=draw_note(kind, "aligned"))
         t0 = time.perf_counter()
-        spent["aligned K3/K5"] += t0 - t1
         # K6: every walker of (a); the largest rows and others of (b); its
         # tables on every leader of both
         got = out["ervs_block_select"]
@@ -2562,8 +2720,12 @@ def ops_phase(graph, deepwalk, tables, reps: int) -> tuple:
     for (name, label), r in rows.items():
         extra = "".join(f", {k} {r[k]:.4f}" for k in (
             "mean_deg", "mean_draws", "mean_jumped", "mean_trials",
-            "sectors_per_walker")
+            "reads_per_walker", "sectors_per_walker")
             if k in r)
+        if "gather_ms" in r:
+            extra += (f"; torch's gather of one entry of each distinct "
+                      f"sector its plain version reads {r['gather_ms']:.4f} "
+                      f"ms")
         if "table_ms" in r:
             extra += (f"; plan and table pass {r['table_ms']:.4f} ms of the "
                       f"call ({r['jobs']} distinct rows, {r['tiles']} tiles, "
@@ -2828,7 +2990,9 @@ def main() -> int:
             "library_ms": None, "lanes": r["lanes"],
             "checked": r["checked"], "mismatches": 0,
             **{k: r[k] for k in ("cold_ms", "bound_note", "table_ms",
-                                 "peak_mib") if k in r}})
+                                 "peak_mib", "reads_per_walker",
+                                 "sectors_per_walker", "gather_ms")
+               if k in r}})
     for (name, label), r in lm_rows.items():
         src, replaces = SOURCES[name]
         kernels.append({

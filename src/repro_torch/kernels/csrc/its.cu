@@ -4,8 +4,8 @@
 // (body _its_kernel :53); the draw itself is its_offset (its.cuh).  The
 // engine's entry searches the flat CSR-order CDF through the row offsets:
 // the TPU kernel's [R, 128] row alignment was a DMA constraint and is not
-// needed there.  The aligned entry runs the same draw on the [R, 128]
-// stream of kernels/ops.py, for the standalone op.
+// needed there.  The aligned entry draws on the [R, 128] stream of
+// kernels/ops.py, for the standalone op (its_aligned_offset).
 //
 // What bounds it on the H100: random DRAM reads per walker, each a 64 B
 // access of which a binary search uses 4 B.  Design: one thread per
@@ -16,7 +16,14 @@
 // L2 to keep their lines), then reads one aligned 64 B block of the CDF
 // with four 16 B loads in flight.  A walker costs its record and that
 // block from DRAM, where the binary search cost indptr, total and every
-// probe below the range's last 64 B.
+// probe below the range's last 64 B.  The aligned entry promises the
+// binary search's answer on any values (non-monotone rows, rows clipped
+// at the stream's ends), so it keeps the search probe for probe.  Its
+// walkers are in node order on rows 512 B apart, and most rows of the
+// smoke's graph hold at most 8 entries: it reads such a row as one
+// 32 B sector, one of up to 16 as its 64 B block, before the Threefry,
+// so the draw's ~70 instructions overlap the DRAM round trip, and
+// searches it from registers; a longer row is searched a probe at a time.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -39,7 +46,9 @@ __global__ void its_kernel(const int4* __restrict__ rec,
 
 // The standalone op on the tile-aligned stream (repro_torch.kernels.ops):
 // walker i's row starts at flat offset row0[i] * 128 of cdf2d, whose last
-// flat index is `last` (probes past either end read that end).
+// flat index is `last` (probes past either end read that end).  kVec:
+// cdf2d is 16 B aligned, so a block is read as 16 B loads.
+template <bool kVec>
 __global__ void its_aligned_kernel(const float* __restrict__ cdf2d,
                                    const int32_t* __restrict__ row0,
                                    const int32_t* __restrict__ degs,
@@ -48,9 +57,10 @@ __global__ void its_aligned_kernel(const float* __restrict__ cdf2d,
                                    int64_t last, int32_t* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  out[i] = its_row_offset(cdf2d, static_cast<int64_t>(row0[i]) * 128, degs[i],
-                          totals[i], static_cast<uint32_t>(seeds[2 * i]),
-                          static_cast<uint32_t>(seeds[2 * i + 1]), last);
+  out[i] = its_aligned_offset<kVec>(
+      cdf2d, static_cast<int64_t>(row0[i]) * 128, degs[i], totals[i],
+      static_cast<uint32_t>(seeds[2 * i]),
+      static_cast<uint32_t>(seeds[2 * i + 1]), last);
 }
 
 }  // namespace repro
@@ -64,9 +74,13 @@ extern "C" int repro_its_search_aligned(const float* cdf2d,
                                         void* stream) {
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  repro::its_aligned_kernel<<<blocks, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      cdf2d, row0, degs, totals, seeds, n, last, out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (reinterpret_cast<uintptr_t>(cdf2d) % 16 == 0)
+    repro::its_aligned_kernel<true><<<blocks, threads, 0, s>>>(
+        cdf2d, row0, degs, totals, seeds, n, last, out);
+  else
+    repro::its_aligned_kernel<false><<<blocks, threads, 0, s>>>(
+        cdf2d, row0, degs, totals, seeds, n, last, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,10 +7,14 @@
 // on); -1 for empty or zero-total rows.
 //
 // its_row_offset binary-searches the row: a dependent 4 B read a probe,
-// each in its own 64 B segment until the range fits one.  its_offset, the
-// draw on the CSR, searches a fence table instead (fence[b] = cdf[16 b +
-// 15], the last entry of the CDF's b-th aligned 64 B block; 12 MB at 48M
-// edges, so it stays in L2) and then reads one block of the CDF whole.
+// each in its own 64 B segment until the range fits one.
+// its_aligned_offset, the draw on the aligned stream, runs the same
+// search probe for probe but reads a row of at most 16 entries whole
+// before the Threefry.
+// its_offset, the draw on the CSR, searches a fence table instead
+// (fence[b] = cdf[16 b + 15], the last entry of the CDF's b-th aligned
+// 64 B block; 12 MB at 48M edges, so it stays in L2) and then reads one
+// block of the CDF whole.
 #pragma once
 #include <cstdint>
 
@@ -40,6 +44,85 @@ __device__ __forceinline__ int its_row_offset(const float* __restrict__ cdf,
 
 // CDF entries a fence stands for: one 64 B segment of float32
 constexpr int kFenceBlock = 16;
+
+// kN entries at p into x: 16 B loads where p is 16 B aligned (kVec), else
+// one 4 B load each.
+template <bool kVec, int kN>
+__device__ __forceinline__ void load_entries(const float* __restrict__ p,
+                                             float (&x)[kN]) {
+  if (kVec) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int j = 0; j < kN / 4; ++j) {
+      const float4 f = q[j];
+      x[4 * j] = f.x;
+      x[4 * j + 1] = f.y;
+      x[4 * j + 2] = f.z;
+      x[4 * j + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kN; ++j) x[j] = p[j];
+  }
+}
+
+// The binary search's levels inside one block of kN entries, from the
+// range [lo, hi) of the block: bit j of le answers the probe of entry j
+// (x[j] <= target), so each level reads a bit where the plain search
+// reads the entry.  kLevels levels end a range of at most 2^(kLevels-1)
+// entries; the bits keep the search off a register array indexed at run
+// time.  Returns lo.
+template <int kLevels>
+__device__ __forceinline__ int search_bits(uint32_t le, int lo, int hi) {
+#pragma unroll
+  for (int k = 0; k < kLevels; ++k) {
+    const int mid = (lo + hi) >> 1;
+    const bool live = lo < hi;
+    const bool right = (le >> mid) & 1u;
+    lo = live && right ? mid + 1 : lo;
+    hi = live && !right ? mid : hi;
+  }
+  return lo;
+}
+
+template <int kN>
+__device__ __forceinline__ uint32_t at_or_below(const float (&x)[kN],
+                                                float target) {
+  uint32_t le = 0;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) le |= (x[j] <= target ? 1u : 0u) << j;
+  return le;
+}
+
+// its_row_offset on the tile-aligned stream cdf[0 .. last], whose length
+// is a multiple of 128 and whose rows start at multiples of 128 (kVec:
+// cdf is 16 B aligned): the same binary search, probe for probe, so it is
+// bitwise on any values (non-monotone rows too).  What changes is when
+// its bytes arrive.  A row of at most 16 entries is read whole (8 entries
+// as one 32 B sector, 16 as the 64 B block) before the Threefry, and
+// searched from registers.  A longer row, or one that starts before the
+// stream or runs past its end, is its_row_offset's: a first probe in
+// flight during the Threefry and the last levels read from one block
+// were measured on hub rows and lost.
+template <bool kVec>
+__device__ __forceinline__ int its_aligned_offset(
+    const float* __restrict__ cdf, int64_t start, int deg, float tot,
+    uint32_t k0, uint32_t k1, int64_t last) {
+  if (deg <= 0 || !(tot > 0.0f)) return -1;
+  if (deg > kFenceBlock || start < 0 || start + deg - 1 > last)
+    return its_row_offset(cdf, start, deg, tot, k0, k1, last);
+  const float* __restrict__ row = cdf + start;
+  if (deg <= kFenceBlock / 2) {
+    float x[kFenceBlock / 2];
+    load_entries<kVec>(row, x);
+    const float target = __fmul_rn(uniform_01(k0, k1, 0u, kItsSalt), tot);
+    return min(search_bits<4>(at_or_below(x, target), 0, deg), deg - 1);
+  }
+  float x[kFenceBlock];
+  load_entries<kVec>(row, x);
+  const float target = __fmul_rn(uniform_01(k0, k1, 0u, kItsSalt), tot);
+  return min(search_bits<5>(at_or_below(x, target), 0, deg), deg - 1);
+}
 
 // A fence read that asks L2 to keep its line (evict_last): the fence table
 // is searched by every walker and its top levels are shared.

@@ -11,8 +11,10 @@ do, as the reference's benchmarks and kernel tests drive them:
 * :func:`erjs_select` — kernel K7 (``csrc/erjs_block.cu``), bound-based
   rejection reading one stored weight per trial;
 * :func:`its_search` / :func:`alias_pick` — the aligned entries of K3
-  (``csrc/its.cu``) and K5 (``csrc/alias.cu``), the same device code at
-  flat starts ``row0 * 128``;
+  (``csrc/its.cu``: the plain binary search probe for probe, a short row
+  read whole before its draw) and K5 (``csrc/alias.cu``), at flat starts
+  ``row0 * 128``; both give the plain versions' answer on any values,
+  rows clipped at the stream's ends and streams of any 4 B alignment;
 * :func:`token_sample` — kernel K8 (``csrc/token_sample.cu``, wrapper
   ``token_sampler.py``), Gumbel-max sampling over LM logits, which needs
   no layout.

@@ -6,7 +6,9 @@ float32 operations, one IEEE operation at a time, as its kernel:
 :func:`ervs_select_ref` is the plain version of K6 (``csrc/ervs_block.cu``),
 :func:`erjs_select_ref` of K7 (``csrc/erjs_block.cu``),
 :func:`its_search_ref` and :func:`alias_pick_ref` of K3's and K5's aligned
-entries, :func:`token_sample_ref` of K8 (``csrc/token_sample.cu``).
+entries (:func:`its_reads_ref` and :func:`alias_reads_ref` replay what
+they read, for the kernels' bounds), :func:`token_sample_ref` of K8
+(``csrc/token_sample.cu``).
 :func:`ervs_select_semantic` is the textbook algorithm with a
 ``torch.Generator``, the distribution oracle of chi-square tests.
 
@@ -467,6 +469,27 @@ def erjs_reads_ref(w2d: torch.Tensor, row0: torch.Tensor,
 
 
 # ---------------------------------------------------- precomputed tables
+def _its_search(flat: torch.Tensor, start: torch.Tensor, deg: torch.Tensor,
+                target: torch.Tensor, probes=None) -> torch.Tensor:
+    """The lower-bound binary search of the rows ``[start, start + deg)``
+    of ``flat`` for ``target``: each level probes ``mid = (lo + hi) // 2``
+    (its flat index clipped to the stream) and goes right iff the entry is
+    at most the target.  Returns lo [n] int64; appends each level's probed
+    indices of the walkers still searching to ``probes`` when given."""
+    lo = torch.zeros_like(deg)
+    hi = deg.clone()
+    for _ in range(32):
+        live = lo < hi
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        at = (start + mid).clamp(0, flat.numel() - 1)
+        if probes is not None:
+            probes.append(at[live])
+        right = (flat[at] <= target) & live
+        lo, hi = torch.where(right, mid + 1, lo), \
+            torch.where(live & ~right, mid, hi)
+    return lo
+
+
 def its_search_ref(cdf2d: torch.Tensor, row0: torch.Tensor,
                    degs: torch.Tensor, totals: torch.Tensor,
                    seeds: torch.Tensor) -> torch.Tensor:
@@ -474,21 +497,41 @@ def its_search_ref(cdf2d: torch.Tensor, row0: torch.Tensor,
     aligned entry.  u = uniform_01(seed, (0, ITS_SALT)), target u·total,
     the first offset whose inclusive prefix exceeds it; -1 for empty or
     zero-total rows.  Returns [W] int32."""
-    flat = cdf2d.reshape(-1)
     deg = degs.to(torch.int64)
-    start = row0.to(torch.int64) * LANES
     u = uniform_01(seeds[:, 0], seeds[:, 1], 0, ITS_SALT)
-    target = u * totals
-    lo = torch.zeros_like(deg)
-    hi = deg.clone()
-    for _ in range(32):
-        mid = torch.div(lo + hi, 2, rounding_mode="floor")
-        val = flat[(start + mid).clamp(0, flat.numel() - 1)]
-        right = (val <= target) & (lo < hi)
-        lo, hi = torch.where(right, mid + 1, lo), \
-            torch.where(right | (lo >= hi), hi, mid)
+    lo = _its_search(cdf2d.reshape(-1), row0.to(torch.int64) * LANES, deg,
+                     u * totals)
     sel = torch.minimum(lo, (deg - 1).clamp_min(0))
     return torch.where((deg > 0) & (totals > 0), sel, -1).to(torch.int32)
+
+
+def its_reads_ref(cdf2d: torch.Tensor, row0: torch.Tensor,
+                  degs: torch.Tensor, totals: torch.Tensor,
+                  seeds: torch.Tensor) -> torch.Tensor:
+    """The flat stream indices that :func:`its_search_ref`'s binary search
+    reads, clipped to the stream as it reads them, for the walkers whose
+    draw depends on them (degree and total above 0; the others draw -1
+    whatever the stream holds).  Returns [probes] int64, level by level
+    (what a bound counts K3's aligned reads from)."""
+    draw = ((degs > 0) & (totals > 0)).nonzero().squeeze(1)
+    u = uniform_01(seeds[draw, 0], seeds[draw, 1], 0, ITS_SALT)
+    probes = [torch.empty(0, dtype=torch.int64, device=cdf2d.device)]
+    _its_search(cdf2d.reshape(-1), row0[draw].to(torch.int64) * LANES,
+                degs[draw].to(torch.int64), u * totals[draw], probes)
+    return torch.cat(probes)
+
+
+def _alias_column(flat_p: torch.Tensor, row0: torch.Tensor,
+                  degs: torch.Tensor, seeds: torch.Tensor):
+    """(the column's clipped flat index, the column, u2) of each walker's
+    alias draw: (u1, u2) = uniform_pair_01(seed, (0, ALIAS_SALT)), column
+    min(int(u1 · deg), deg - 1)."""
+    deg = degs.to(torch.int64)
+    u1, u2 = uniform_pair_01(seeds[:, 0], seeds[:, 1], 0, ALIAS_SALT)
+    col = torch.minimum((u1 * deg.to(torch.float32)).to(torch.int64),
+                        (deg - 1).clamp_min(0))
+    pos = (row0.to(torch.int64) * LANES + col).clamp(0, flat_p.numel() - 1)
+    return pos, col, u2
 
 
 def alias_pick_ref(prob2d: torch.Tensor, alias2d: torch.Tensor,
@@ -498,13 +541,23 @@ def alias_pick_ref(prob2d: torch.Tensor, alias2d: torch.Tensor,
     the float32 stream): the plain version of K5's aligned entry.
     Returns [W] int32, -1 for empty or zero-total rows."""
     flat_p, flat_a = prob2d.reshape(-1), alias2d.reshape(-1)
-    deg = degs.to(torch.int64)
-    u1, u2 = uniform_pair_01(seeds[:, 0], seeds[:, 1], 0, ALIAS_SALT)
-    col = torch.minimum((u1 * deg.to(torch.float32)).to(torch.int64),
-                        (deg - 1).clamp_min(0))
-    pos = (row0.to(torch.int64) * LANES + col).clamp(0, flat_p.numel() - 1)
+    pos, col, u2 = _alias_column(flat_p, row0, degs, seeds)
     sel = torch.where(u2 < flat_p[pos], col, flat_a[pos].to(torch.int64))
-    return torch.where((deg > 0) & (totals > 0), sel, -1).to(torch.int32)
+    return torch.where((degs > 0) & (totals > 0), sel, -1).to(torch.int32)
+
+
+def alias_reads_ref(prob2d: torch.Tensor, row0: torch.Tensor,
+                    degs: torch.Tensor, totals: torch.Tensor,
+                    seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The flat stream indices that :func:`alias_pick_ref` reads, for the
+    walkers whose draw depends on them (degree and total above 0): (each
+    one's column in ``prob2d``, the column in the alias stream of those
+    that reject it, u2 not below its keep probability).  Both int64, in
+    walker order (what a bound counts K5's aligned reads from)."""
+    flat_p = prob2d.reshape(-1)
+    draw = ((degs > 0) & (totals > 0)).nonzero().squeeze(1)
+    pos, _, u2 = _alias_column(flat_p, row0[draw], degs[draw], seeds[draw])
+    return pos, pos[~(u2 < flat_p[pos])]
 
 
 # --------------------------------------------------------- token sampler

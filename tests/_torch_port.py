@@ -566,3 +566,129 @@ def ervs_model(w2d, row0, degs, seeds):
             t_rem = t_rem - (s - base)
         out[:, i] = best_off, draws, jumped
     return tuple(torch.from_numpy(x) for x in out)
+
+
+#: row lengths the aligned K3 treats apart: one sector (1-8), one block
+#: (9-16), one more entry, and rows of several blocks and 128-lane rows;
+#: and a hub
+ALIGNED_ROW_LENGTHS = tuple(range(1, 18)) + (127, 128, 129)
+ALIGNED_HUB_LENGTH = 70_000
+#: kinds of values on those rows
+ALIGNED_ROW_KINDS = ("cdf", "raw", "integer")
+
+
+def aligned_rows(kind: str, seed: int):
+    """(values, indptr, totals): two rows of each of
+    ``ALIGNED_ROW_LENGTHS`` and one of ``ALIGNED_HUB_LENGTH``.  ``cdf``:
+    inclusive prefix sums of U(0.5, 5) weights with zeros at positions
+    14-18 and 30-34 of every 16 (plateaus across block boundaries), the
+    row's last entry its total; ``integer``: the same of weights 1 to 3
+    (targets land on entries); ``raw``: the weights themselves with random
+    totals, so rows are not monotone."""
+    rng = np.random.default_rng(seed)
+    deg = np.array([d for d in ALIGNED_ROW_LENGTHS for _ in range(2)]
+                   + [ALIGNED_HUB_LENGTH], np.int64)
+    indptr = np.zeros(deg.size + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    E = int(indptr[-1])
+    w = (rng.integers(1, 4, E) if kind == "integer"
+         else rng.uniform(0.5, 5.0, E)).astype(np.float32)
+    within = np.arange(E) - np.repeat(indptr[:-1], deg)
+    if kind != "raw":
+        w[(within % 32 >= 14) & (within % 32 <= 18)] = 0.0
+        w[(within % 64 >= 30) & (within % 64 <= 34)] = 0.0
+    if kind == "raw":
+        vals = w
+        totals = rng.uniform(0.5, 5.0, deg.size).astype(np.float32)
+    else:
+        vals = np.concatenate([np.cumsum(w[a:b], dtype=np.float32)
+                               for a, b in zip(indptr[:-1], indptr[1:])])
+        totals = vals[indptr[1:] - 1]
+    return vals, indptr, totals
+
+
+def aligned_walkers(n_rows: int, totals, seed: int):
+    """Node indices, totals (some zero) and seeds (raw key data, uint32):
+    8 random keys and every ``TOP_UNIFORM_KEYS`` on each row, 200 more on
+    the hub (the last row)."""
+    top = np.asarray(TOP_UNIFORM_KEYS, np.uint32)
+    nodes = np.concatenate([np.repeat(np.arange(n_rows), 8 + len(top)),
+                            np.full(200, n_rows - 1)])
+    kd = np.concatenate([
+        np.concatenate([random_keys(8, seed + v), top]) for v in
+        range(n_rows)] + [random_keys(200, seed - 1)])
+    tot = totals[nodes].copy()
+    tot[::23] = 0.0
+    return nodes, tot, kd
+
+
+def clipped_aligned_inputs(seed: int):
+    """(values [64, 128] float32 of U(0, 5), row0, degs, totals, seeds as
+    raw key data): walkers on rows that start before the stream, past it,
+    or run past its end, and inside it, six on each (row0, deg)."""
+    rng = np.random.default_rng(seed)
+    v2d = rng.uniform(0.0, 5.0, (64, 128)).astype(np.float32)
+    r0, dg = np.meshgrid([-20, -1, 0, 62, 63, 64, 70],
+                         [1, 8, 9, 16, 17, 129, 300])
+    r0 = np.repeat(r0.ravel(), 6).astype(np.int32)
+    dg = np.repeat(dg.ravel(), 6).astype(np.int32)
+    tot = rng.uniform(0.5, 5.0, r0.size).astype(np.float32)
+    return v2d, r0, dg, tot, random_keys(r0.size, seed + 1)
+
+
+def offset_stream(n_floats: int, offset_bytes: int, device="cpu"):
+    """A zeroed float32 view of ``n_floats`` on ``device`` whose base lies
+    ``offset_bytes`` past a 32 B boundary."""
+    buf = torch.zeros(n_floats + 16, device=device)
+    skip = ((offset_bytes - buf.data_ptr()) % 32) // 4
+    view = buf[skip:skip + n_floats]
+    assert view.data_ptr() % 32 == offset_bytes
+    return view
+
+
+def its_aligned_model(cdf2d, row0, degs, totals, seeds):
+    """A plain model of the decision order of K3's aligned entry
+    (``csrc/its.cuh`` ``its_aligned_offset``), one walker at a time: a row
+    of at most 8 entries searched from the bits of its first 8 (``x <=
+    target``), of 9 to 16 from its first 16; a longer row, or one clipped
+    at the stream's ends, searched a clipped probe at a time.  Returns
+    (offset [W] int32, each walker's path: "empty", "clipped", "sector",
+    "block" or "long")."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prng import uniform_01
+
+    flat = cdf2d.reshape(-1).numpy()
+    last = flat.size - 1
+    target = (uniform_01(seeds[:, 0], seeds[:, 1], 0, ref.ITS_SALT)
+              * totals).numpy()
+    bits = lambda x, t: sum(1 << j for j, v in enumerate(x) if v <= t)
+
+    def search_bits(le, lo, hi, levels):
+        for _ in range(levels):
+            mid = (lo + hi) >> 1
+            if lo < hi:
+                lo, hi = (mid + 1, hi) if (le >> mid) & 1 else (lo, mid)
+        return lo
+
+    out, paths = np.full(row0.numel(), -1, np.int32), []
+    for i in range(row0.numel()):
+        d, s, t = int(degs[i]), int(row0[i]) * ref.LANES, target[i]
+        if d <= 0 or not bool(totals[i] > 0):
+            paths.append("empty")
+            continue
+        if d > 16 or s < 0 or s + d - 1 > last:
+            lo, hi = 0, d
+            while lo < hi:
+                mid = (lo + hi) >> 1
+                if flat[min(max(s + mid, 0), last)] <= t:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            paths.append("long" if 0 <= s and s + d - 1 <= last
+                         else "clipped")
+        else:
+            n = 8 if d <= 8 else 16
+            lo = search_bits(bits(flat[s:s + n], t), 0, d, 4 if n == 8 else 5)
+            paths.append("sector" if n == 8 else "block")
+        out[i] = min(lo, d - 1)
+    return torch.from_numpy(out), paths

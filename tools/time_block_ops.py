@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""K6 (``ops.ervs_select``) and K7 (``ops.erjs_select``) on the walker
-sets of ``chip_smoke.py``'s phase 2b, on the card, beside the same
+"""K6 (``ops.ervs_select``), K7 (``ops.erjs_select``) and the aligned
+entries of K3 and K5 (``ops.its_search``, ``ops.alias_pick``) on the
+walker sets of ``chip_smoke.py``'s phase 2b, on the card, beside the same
 kernels built from other trees.
 
     PYTHONPATH=src python tools/time_block_ops.py [--nodes N] [--reps 3] \\
-        [--other DIR ...] [--op ervs|erjs ...] [--l2-fetch BYTES ...]
+        [--other DIR ...] [--op ervs|erjs|its|alias ...] \\
+        [--l2-fetch BYTES ...]
 
 Builds the graph the smoke runs (soc-LiveJournal1 scale by default), the
 aligned weight stream of the whole graph and the two walker sets of
@@ -24,9 +26,15 @@ weights its trials read (``ref.erjs_reads_ref``, in trial order): the
 card's rate for the same random reads; with ``--l2-fetch``, K7 and the
 gather again under each largest L2 fetch size (the context's
 ``CU_LIMIT_MAX_L2_FETCH_GRANULARITY``; the default is printed and
-restored).  Each cell prints its bound
-(``chip_smoke.ervs_block_work`` / ``erjs_block_work``) and the card's
-name, power limit and SM clock come first.  Needs an NVIDIA GPU.
+restored).  K3 and K5 run on both sets (the smoke drives them on
+``all_rows``; ``deepwalk_lanes`` takes K3's rows of more than 16 entries),
+on the aligned streams of the deepwalk tables (``build_tables``, alias
+included); beside each, in the same turns, torch's gather of one entry of
+each distinct 32 B sector their plain version reads
+(``chip_smoke.aligned_draw_work``).  Each cell prints its bound
+(``chip_smoke.ervs_block_work`` / ``erjs_block_work`` / ``its_work`` /
+``alias_work``) and the card's name, power limit and SM clock come first.
+Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -46,7 +54,7 @@ import chip_smoke  # noqa: E402  (the sets' one definition)
 from time_reservoir import other_libs  # noqa: E402
 
 #: the libraries the cells swap
-SWAPPED = ("ervs_block", "erjs_block")
+SWAPPED = ("ervs_block", "erjs_block", "its", "alias")
 #: (cell, tree) pairs whose outputs differed from this tree's
 DIFFERED = []
 
@@ -65,7 +73,7 @@ def other_ops(tree: Path):
 
 @contextlib.contextmanager
 def running(libs):
-    """This tree's wrappers launching ``libs``' K6 and K7."""
+    """This tree's wrappers launching ``libs``' kernels."""
     from repro_torch.kernels import build
 
     mine = {s: build._LIBS[s] for s in SWAPPED}
@@ -124,10 +132,11 @@ def same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def cell(label, fns, reps, b_ms, b_by) -> None:
+def cell(label, fns, reps, b_ms, b_by, beside=None) -> None:
     """Compare every ``fns`` entry (name -> callable) with the first, then
     time them in turns: the others, the first twice, the others in
-    reverse."""
+    reverse; ``beside`` (name -> callable, not compared) is timed in the
+    same turns, before the others and after them."""
     names = list(fns)
     want = fns[names[0]]()
     for name in names[1:]:
@@ -138,7 +147,9 @@ def cell(label, fns, reps, b_ms, b_by) -> None:
           f"{sum(c == label for c, _ in DIFFERED)} differ; bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     others = names[1:]
-    for name in others + [names[0]] * 2 + others[::-1]:
+    fns = {**fns, **(beside or {})}
+    extra = list(beside or {})
+    for name in extra + others + [names[0]] * 2 + others[::-1] + extra:
         ms = chip_smoke.cuda_ms(fns[name], reps)
         print(f"[block] {label} {name}: {ms:.4f} ms", flush=True)
 
@@ -148,13 +159,14 @@ def main() -> int:
     ap.add_argument("--nodes", type=int, default=chip_smoke.LJ_NODES)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--other", type=Path, action="append", default=[])
-    ap.add_argument("--op", choices=("ervs", "erjs"), action="append")
+    ap.add_argument("--op", choices=("ervs", "erjs", "its", "alias"),
+                    action="append")
     ap.add_argument("--l2-fetch", type=int, action="append", default=[])
     args = ap.parse_args()
-    ops_wanted = set(args.op or ("ervs", "erjs"))
+    ops_wanted = set(args.op or ("ervs", "erjs", "its", "alias"))
 
     import torch
-    from repro_torch.core import EngineConfig, WalkEngine
+    from repro_torch.core import EngineConfig, WalkEngine, build_tables
     from repro_torch.graphs import power_law_graph
     from repro_torch.kernels import build, ops, ref
     from repro_torch.walks import make_workload
@@ -169,14 +181,20 @@ def main() -> int:
     with ThreadPoolExecutor() as pool:  # every tree's nvcc runs at once
         built = [pool.submit(other_libs, tree) for tree in args.other]
         build.build_all()
-        trees = [(str(t), b.result()[0], other_ops(t))
+        built = [(str(t), *b.result(), other_ops(t))
                  for t, b in zip(args.other, built)]
+        trees = [(t, libs, mod) for t, libs, _, mod in built]
     print(f"[block] build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for stem in SWAPPED:
-        for name, what in chip_smoke.ptxas_lines(build._lib_path(
-                f"{stem}.cu").with_suffix(".log").read_text()):
-            if "registers" in what:
-                print(f"[ptxas] this {name[:40]}: {what}", flush=True)
+    logs = [("this", {s: build._lib_path(f"{s}.cu") for s in SWAPPED})] \
+        + [(t, paths) for t, _, paths, _ in built]
+    for tree, paths in logs:
+        for stem in SWAPPED:
+            path = Path(paths[stem]) if stem in paths else None
+            if path is None or not path.with_suffix(".log").exists():
+                continue
+            for name, what in chip_smoke.ptxas_lines(
+                    path.with_suffix(".log").read_text()):
+                print(f"[ptxas] {tree} {name[:40]}: {what}", flush=True)
     g = power_law_graph(args.nodes, chip_smoke.LJ_AVG_DEGREE,
                         weight_dist="uniform", seed=0).to("cuda")
     eng = WalkEngine(g, make_workload("deepwalk"), EngineConfig(
@@ -184,6 +202,11 @@ def main() -> int:
     w2d, row0, degs, sets = chip_smoke.ops_sets(g, eng)
     h_max = eng.sampler_ctx.stats.h_max
     del eng
+    if ops_wanted & {"its", "alias"}:
+        wl = make_workload("deepwalk")
+        tables = build_tables(g, wl, wl.params())
+        cdf2d, prob2d, alias2d, _, _ = ops.aligned_precomp_tables(
+            tables, g.indptr)
     trials, rounds = chip_smoke.OPS_ERJS_BUDGET
     for label, (nodes, key) in sets.items():
         r0, dg, seeds = chip_smoke.ops_walkers(row0, degs, nodes, key)
@@ -254,6 +277,36 @@ def main() -> int:
                         for t, libs, mod in trees})
             cell(f"erjs/{label}", fns, args.reps, *b)
             l2_fetch(default)
+        for op in ("its", "alias"):
+            if op not in ops_wanted:
+                continue
+            tot = tables.total[nodes].contiguous()
+            streams = (cdf2d,) if op == "its" else (prob2d, alias2d)
+            drawn = chip_smoke.aligned_draw_work(op, streams, r0, dg, tot,
+                                                 seeds)
+            n = r0.numel()
+            b = chip_smoke.pipe_bound(*drawn.work)
+            print(f"[block] {op}/{label}: {drawn.reads / n:.4f} reads and "
+                  f"{drawn.sectors / n:.4f} distinct 32 B sectors a walker "
+                  f"({drawn.sectors} sectors); rows of at most 8 / 16 "
+                  f"entries "
+                  f"{float((dg <= 8).double().mean()):.4f} / "
+                  f"{float((dg <= 16).double().mean()):.4f}", flush=True)
+            flats = [(st.view(-1), idx) for st, idx in drawn.firsts]
+
+            def draw(mod, op=op, tot=tot):
+                return (mod.its_search(cdf2d, r0, dg, tot, seeds),) \
+                    if op == "its" else \
+                    (mod.alias_pick(prob2d, alias2d, r0, dg, tot, seeds),)
+
+            def k35(libs, mod, draw=draw):
+                with running(libs):
+                    return draw(mod)
+            fns = {"this": lambda draw=draw: draw(ops)}
+            fns.update({t: (lambda libs=libs, mod=mod, k35=k35:
+                            k35(libs, mod)) for t, libs, mod in trees})
+            cell(f"{op}/{label}", fns, args.reps, *b, beside={
+                "gather": lambda flats=flats: [f[i] for f, i in flats]})
     if DIFFERED:
         raise SystemExit(f"[block] trees differ: {DIFFERED}")
     return 0

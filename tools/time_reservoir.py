@@ -412,7 +412,6 @@ def draw_cells(label, g, draw, cur, keys, work, trees, reps,
 
 def k3_cell(pname, eng, trees, reps, split) -> None:
     """K3 on the precomp lanes of ``pname``'s adaptive main-path state."""
-    from repro_torch.core.ctxutil import degrees_of
     from repro_torch.kernels.its import its_search
 
     g = eng.graph
@@ -424,15 +423,14 @@ def k3_cell(pname, eng, trees, reps, split) -> None:
     del split_
     draw_cells(f"k3_{pname}", g,
                lambda c, k: its_search(g, eng.precomp, c, k), cur, keys,
-               lambda c, k: chip_smoke.its_work(
-                   degrees_of(g, c), chip_smoke.ENGINE_DRAW_BYTES),
+               lambda c, k: chip_smoke.engine_draw_work(
+                   "its", g, eng.precomp, c, k),
                trees, reps, split)
 
 
 def k5_cell(pname, eng, trees, reps, split) -> None:
     """K5 on the live lanes of ``pname``'s fused ``alias_precomp`` engine
     at its mid-walk state."""
-    from repro_torch.core.ctxutil import degrees_of
     from repro_torch.kernels.alias import alias_pick
 
     g, tables = eng.graph, eng.precomp
@@ -444,14 +442,9 @@ def k5_cell(pname, eng, trees, reps, split) -> None:
     keys = state.stream_keys()[idx].contiguous()
     del state
 
-    def work(c, k):
-        rej = chip_smoke.alias_rejected(k, degrees_of(g, c),
-                                        alias_pick(g, tables, c, k))
-        return chip_smoke.alias_work(c.numel(), int(rej.sum()),
-                                     chip_smoke.ENGINE_DRAW_BYTES)
-
     draw_cells(f"k5_{pname}", g, lambda c, k: alias_pick(g, tables, c, k),
-               cur, keys, work, trees, reps, split)
+               cur, keys, lambda c, k: chip_smoke.engine_draw_work(
+                   "alias", g, tables, c, k), trees, reps, split)
 
 
 def main() -> int:
