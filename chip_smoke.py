@@ -7,7 +7,11 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 Phases (any failure exits non-zero and prints no result line):
 
 1. build   — compile K1–K8 from ``src/repro_torch/kernels/csrc`` with nvcc
-             (one process per source, in parallel).
+             (one process per source, in parallel); then lower phase 4b's
+             programs to generated device rules (``kernels/rulegen.py``)
+             and build their instances of K1, K2 and K4 (``ervs.cu``,
+             ``erjs.cu``, ``megastep.cu`` against each generated header,
+             all together), logging the seconds.
 1b. lm     — LM serving at full width: ``qwen3-0.6b`` (28 layers, d_model
              1,024, vocab 151,936, bf16; random weights from
              ``init_params`` with a seeded ``torch.Generator``) serves 8
@@ -75,9 +79,13 @@ Phases (any failure exits non-zero and prints no result line):
              hooked (ppr_nibble), with forced eRJS fallbacks
              (rjs_trials=1, rjs_max_rounds=1) and every third row stale:
              paths, end state (mass included) and flag words bitwise,
-             except that a path may part at a reservoir near-tie; then the
-             whole engine on a small graph, kernels (cuda) against plain
-             versions (cpu).
+             except that a path may part at a reservoir near-tie; then
+             (3d) K1, K1 jump and K2 under each generated rule on the
+             walkers the hand rules were held on, against their plain
+             versions and bitwise against the hand rules' launches, and
+             K4 under stripped deepwalk's rule (rejection, precomp_its)
+             likewise; then the whole engine on a small graph, kernels
+             (cuda) against plain versions (cpu).
 4. main    — ``WalkEngine(graph, make_workload(name), EngineConfig(
              method="adaptive", jump_threshold=8)).run(np.arange(V),
              num_steps=80)`` for every registry program (node2vec,
@@ -98,6 +106,18 @@ Phases (any failure exits non-zero and prints no result line):
              read just after; ``run()`` reports its own host-clock split
              (setup, admit, steps, harvest).  Every emitted step must be
              an edge and stopped lanes must emit -1.
+4b. compiler — node2vec and metapath stripped of their declarations and
+             device rules (``walks.examples.stripped``: the engine
+             analyses the traced weight, the kernels run generated
+             rules) run adaptive over 80 steps and must give the declared
+             programs' phase-4 paths, regime fractions and fallbacks bit
+             for bit; stripped deepwalk runs fused under erjs and
+             its_precomp over 16 steps, must resolve "fused", launch K4
+             and equal the declared fused runs; the reference's
+             quickstart program (``walks.examples.degree_damped``, hooks
+             staged in torch) runs adaptive over 80 steps, must be
+             PER_STEP and not static, and must launch K1 and K2.  Each
+             twin's steps phase is logged beside its declared program's.
 5. timing  — each kernel and its plain version on the lanes one main-path
              step hands it (the state after ``MID_STEP`` steps: 8, or 4
              for the short MetaPath and PPR-Nibble walks) under each
@@ -119,8 +139,13 @@ Phases (any failure exits non-zero and prints no result line):
              still alive there), held against its plain version on the
              same state; for the reservoir regime, whose torch row scans
              take minutes per step here (~10^11 edges for deepwalk), the
-             kernel and the plain version run one step of every walker
-             from that state, and the 16-step launch is timed beside it.
+             kernel runs one step of every walker from that state, its
+             rows of up to ``K4_RESERVOIR_PLAIN_LANES`` walkers (hubs and
+             random ones) are held
+             against the plain version on them, and the 16-step launch is
+             timed beside it.  The generated rules' kernels are timed and
+             held the same way on phase 4b's engines (rows
+             ``.../gen:<program>``).
              K3, K5, their aligned entries (phase 2b) and K4's table
              regimes are also timed cold, with L2 flushed before each
              launch (``cold_ms``), as the main path meets them between
@@ -249,6 +274,18 @@ SECOND_ORDER = ("node2vec", "node2vec_unweighted", "2ndpr",
 # MetaPath walks dead-end and PPR-Nibble walks stop early
 MID_STEP = {name: 4 if name.startswith("metapath") or name == "ppr_nibble"
             else 8 for name in ADAPTIVE_NEEDS}
+
+
+def base_program(pname: str) -> str:
+    """The registry program a row's program label stands for: a stripped
+    twin ``gen:<name>`` is ``<name>``."""
+    return pname[len(GEN):] if pname.startswith(GEN) else pname
+
+
+def mid_step(pname: str) -> int:
+    return MID_STEP.get(base_program(pname), 8)
+
+
 # the fused regimes and the method that runs each
 FUSED_METHODS = {"reservoir": "ervs", "rejection": "erjs",
                  "precomp_its": "its_precomp",
@@ -275,8 +312,23 @@ ENGINE_STREAM_BYTES, ALIGNED_DRAW_BYTES = 32.0, 32.0
 # their fence search: 16 float32 entries
 ITS_BLOCK_BYTES = 64.0
 # steps over which phase 5 holds K4's reservoir regime against its plain
-# version on every walker (~10^11 edges a step for deepwalk)
+# version (~10^11 edges a step for deepwalk's every walker), and the
+# walkers it holds there: up to K4_RESERVOIR_PLAIN_PER_ROW on each of the
+# OPS_HUB_LANES largest rows, the rest at random (every walker took ~190
+# s of the smoke's 1,200; the kernel's step is timed on every walker)
 K4_RESERVOIR_PLAIN_EPOCH = 1
+K4_RESERVOIR_PLAIN_LANES = 65536
+K4_RESERVOIR_PLAIN_PER_ROW = 16
+K4_RESERVOIR_PLAIN_SEED = 17
+# phase 4b, the compiler: registry programs stripped of their declarations
+# and device rules (walks.examples.stripped), run adaptive on generated
+# device rules against the declared programs' phase-4 runs; stripped
+# deepwalk fused in these regimes against the declared fused runs; and
+# the quickstart program (walks.examples.degree_damped) adaptive
+COMPILER_ADAPTIVE = ("node2vec", "metapath")
+COMPILER_FUSED = ("rejection", "precomp_its")
+QUICKSTART = "degree_damped"
+GEN = "gen:"
 # main-path depth of the adaptive programs cut below WALK_STEPS to keep the
 # smoke inside its time limit (2ndpr: 140 s at 80 steps)
 MAIN_STEPS = {"2ndpr": 16}
@@ -1299,6 +1351,210 @@ def check_fused(graph, fused: dict, pname: str, seed: int) -> None:
                  f"hook branch was not exercised")
 
 
+def gen_programs() -> dict:
+    """Phase 4b's programs by label: the stripped twins ``gen:<name>`` of
+    ``COMPILER_ADAPTIVE`` and deepwalk, and the quickstart program."""
+    from repro_torch.walks import make_workload
+    from repro_torch.walks.examples import degree_damped, stripped
+
+    progs = {GEN + n: stripped(make_workload(n))
+             for n in COMPILER_ADAPTIVE + ("deepwalk",)}
+    progs[GEN + QUICKSTART] = degree_damped()
+    return progs
+
+
+def build_generated(progs: dict) -> None:
+    """Phase 1: each program's weight lowered to a generated rule, and the
+    rules' instances of K1, K2 and K4 built, all together."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ervs import kernel_rule
+
+    t0 = time.perf_counter()
+    headers = [kernel_rule(p, p.params()).header for p in progs.values()]
+    t1 = time.perf_counter()
+    build.build_all(tuple(headers))
+    log(f"build: generated rules of {', '.join(progs)} lowered in "
+        f"{t1 - t0:.2f} s; their {len(headers) * len(build.GENERATED_SOURCES)}"
+        f" libraries ({', '.join(build.GENERATED_SOURCES)} each) built in "
+        f"{time.perf_counter() - t1:.1f} s")
+
+
+def check_generated(graph, adaptive: dict, gen_adaptive: dict,
+                    fused: dict, gen_fused: dict, seed: int) -> None:
+    """Phase 3d: K1 (plain and jump) and K2 under each generated rule
+    against their plain versions, on the walkers check_rules gives the
+    hand rules (those of the declared twin; the quickstart program's own),
+    and bitwise against the hand rule's launch on them; K4 under stripped
+    deepwalk's rule in the ``COMPILER_FUSED`` regimes against its plain
+    version as in phase 3c, and bitwise against the declared program's."""
+    import torch
+    from repro_torch.core import erjs as erjs_mod
+    from repro_torch.core import ervs as ervs_mod
+    from repro_torch.core.types import WalkerState
+    from repro_torch.kernels import megastep
+    from repro_torch.kernels.erjs import erjs_select
+    from repro_torch.kernels.ervs import ervs_select
+
+    for label, eng in gen_adaptive.items():
+        twin = adaptive.get(base_program(label))
+        g, cfg, prog = eng.graph, eng.config, eng.workload
+        p = eng.sampler_ctx.params
+        cur, prev, step, keys, ws, bnd = program_walkers(twin or eng, 4096,
+                                                         seed)
+        for jump in (False, True):
+            kname = "ervs_jump_select" if jump else "ervs_select"
+            plain = ervs_mod.ervs_jump_step if jump else ervs_mod.ervs_step
+            got = ervs_select(g, prog, p, cur, prev, step, keys,
+                              tile=cfg.tile, jump=jump, wstate=ws)
+            want = plain(g, prog, p, cur, prev, step, keys, tile=cfg.tile,
+                         wstate=ws)
+            n_bad, unexplained = k1_mismatches(
+                g, prog, p, cur, prev, keys, got, want, cfg.tile, jump,
+                step, ws)
+            same = ""
+            if twin is not None:
+                hand = ervs_select(g, twin.workload, twin.sampler_ctx.params,
+                                   cur, prev, step, keys, tile=cfg.tile,
+                                   jump=jump, wstate=ws)
+                if not torch.equal(hand, got):
+                    fail(f"{kname} [{label}]: the generated rule chose "
+                         f"otherwise than the hand rule on "
+                         f"{int((hand != got).sum())} walkers")
+                same = ", bitwise equal to the hand rule's launch"
+            log(f"check {kname} [{label}]: {cur.numel()} walkers 3 steps "
+                f"in, {n_bad} differ from the plain version, "
+                f"{K1_RULE[jump]}: {unexplained == 0}{same}")
+            if unexplained:
+                fail(f"{kname} [{label}]: {unexplained} differences break "
+                     f"the rule: {K1_RULE[jump]}")
+        budget = dict(trials=cfg.rjs_trials, rounds=cfg.rjs_max_rounds,
+                      wstate=ws)
+        got = erjs_select(g, prog, p, cur, prev, step, keys, bnd, **budget)
+        want = erjs_mod.erjs_step(g, prog, p, cur, prev, step, keys, bnd,
+                                  cfg.rjs_trials, cfg.rjs_max_rounds,
+                                  wstate=ws)
+        hand = want if twin is None else erjs_select(
+            g, twin.workload, twin.sampler_ctx.params, cur, prev, step, keys,
+            bnd, **budget)
+        for a, b, c, what in zip(got, want, hand,
+                                 ("next", "fallback", "trials")):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                fail(f"erjs_select [{label}]: {what} differs from erjs_step "
+                     f"or the hand rule's launch on "
+                     f"{int(((a != b) | (a != c)).sum())} of {cur.numel()} "
+                     f"walkers")
+        log(f"check erjs_select [{label}]: {cur.numel()} walkers, bitwise "
+            f"equal to erjs_step" + (" and the hand rule's launch"
+                                     if twin is not None else ""))
+    cur, prev, keys = walkers(graph, 4096, seed)
+    step = torch.zeros_like(cur)
+    step[::7] = WALK_STEPS - 5
+    alive = torch.ones_like(cur, dtype=torch.bool)
+    alive[::11] = False
+    state0 = WalkerState(cur=cur, prev=prev, step=step, alive=alive,
+                         rng=keys)
+    for kind, eng in gen_fused.items():
+        cfg = eng.config
+        args = dict(kind=kind, tile=cfg.tile, rjs_trials=1,
+                    rjs_max_rounds=1, epoch_len=K4_EPOCH,
+                    num_steps=WALK_STEPS, bmax=eng._fused_bmax,
+                    tables=(stale_every_third(eng.precomp)
+                            if kind.startswith("precomp") else None))
+        twin = fused["deepwalk"][kind]
+        got = megastep.fused_epoch(graph, eng.workload,
+                                   eng.sampler_ctx.params, state0, **args)
+        want = megastep.fused_epoch_plain(graph, eng.workload,
+                                          eng.sampler_ctx.params, state0,
+                                          **args)
+        hand = megastep.fused_epoch(graph, twin.workload,
+                                    twin.sampler_ctx.params, state0, **args)
+        n_bad, unexplained = k4_mismatches(eng, state0, got, want, cfg.tile)
+        for x, y in zip((got[0].cur, got[0].alive, got[1], got[2]),
+                        (hand[0].cur, hand[0].alive, hand[1], hand[2])):
+            if not torch.equal(x, y):
+                fail(f"fused_epoch_{kind} [{GEN}deepwalk]: the generated "
+                     f"rule's epoch differs from the hand rule's")
+        log(f"check fused_epoch_{kind} [{GEN}deepwalk] (rjs_trials=1, "
+            f"rjs_max_rounds=1; every third row stale): {cur.numel()} "
+            f"walkers x {K4_EPOCH} steps, {n_bad} differ from the plain "
+            f"version, all at reservoir near-ties: {unexplained == 0}; "
+            f"bitwise equal to the hand rule's launch")
+        if unexplained:
+            fail(f"fused_epoch_{kind} [{GEN}deepwalk]: {unexplained} walkers "
+                 f"differ from the plain version other than at a reservoir "
+                 f"near-tie")
+
+
+def compiler_main(args, declared: dict, gen_adaptive: dict,
+                  gen_fused: dict):
+    """Phase 4b: the stripped twins and the quickstart program on the main
+    path.  Each stripped adaptive twin must give its declared program's
+    phase-4 paths, regime fractions and fallbacks bit for bit, stripped
+    deepwalk's fused runs the declared fused runs'; the quickstart
+    program must be PER_STEP, not static, and launch K1 and K2.  Returns
+    (launches by (kernel, label), kernel names launched by label)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import flexi_compiler
+    from repro_torch.kernels import build
+
+    launches, launched = {}, {}
+    tele = ("frac_rjs", "frac_precomp", "rjs_fallbacks", "live_steps")
+
+    def same_run(label, res, ref, what):
+        if not np.array_equal(res.paths, ref.paths) or any(
+                getattr(res, f) != getattr(ref, f) for f in tele):
+            fail(f"{label}: the stripped program's run differs from the "
+                 f"declared program's {what}")
+        log(f"compiler [{label}]: paths and {', '.join(tele)} equal the "
+            f"declared program's {what}; steps phase "
+            f"{res.seconds['steps']:.3f} s against its "
+            f"{ref.seconds['steps']:.3f} s (host clock)")
+
+    for label, eng in gen_adaptive.items():
+        base = base_program(label)
+        steps = min(args.steps, MAIN_STEPS.get(base, WALK_STEPS))
+        need = ADAPTIVE_NEEDS.get(base, ("erjs_select",))
+        counts, res = main_path(eng, label, steps, need)
+        if base == QUICKSTART:
+            static = flexi_compiler.is_static(eng.workload)
+            log(f"compiler [{label}]: flag {eng.compiled.flag}, static "
+                f"{static}, fuse report {eng.fuse}")
+            if eng.compiled.flag != "PER_STEP" or static \
+                    or eng.precomp is not None:
+                fail(f"{label}: analysed {eng.compiled.flag}, static "
+                     f"{static}; the reference finds PER_STEP, not static")
+            if counts["ervs_select"] + counts["ervs_jump_select"] <= 0:
+                fail(f"main path [{label}] never launched K1")
+        else:
+            same_run(label, res, declared[base], "phase-4 run")
+        launched[label] = [k for k, n in counts.items() if n]
+        launches.update({(k, label): counts[k] for k in launched[label]})
+        del res
+    steps = min(args.steps, DEEPWALK_PAIR_STEPS)
+    for kind, eng in gen_fused.items():
+        label, name = GEN + "deepwalk", f"fused_epoch_{kind}"
+        if eng.step_exec_resolved != "fused":
+            fail(f"{label}/{eng.config.method} resolved "
+                 f"{eng.step_exec_resolved!r}, not 'fused'")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run(np.arange(eng.graph.num_nodes), num_steps=steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = build.LAUNCHES[name]
+        log(f"main [{label}/{eng.config.method}, fused]: "
+            f"{eng.graph.num_nodes} walkers x {steps} steps in {dt:.2f} s, "
+            f"{res.live_steps} live walker-steps, {n} {name} launches")
+        if n <= 0:
+            fail(f"{label}/{eng.config.method} fused never launched {name}")
+        same_run(f"{label}/{eng.config.method}", res, declared[kind],
+                 "fused run")
+        launches[name, label] = n
+    return launches, launched
+
+
 def check_small_engine() -> None:
     """Phase 3b: the whole engine on a small graph, kernels on the card
     against the plain versions on the CPU — paths and telemetry."""
@@ -1350,9 +1606,9 @@ def check_paths(graph, paths) -> None:
 
 
 # ------------------------------------------------------------- main path
-def main_path(eng, pname: str, steps: int, need: tuple) -> dict:
+def main_path(eng, pname: str, steps: int, need: tuple):
     """Phase 4a: one adaptive ``run()`` of program ``pname`` at full
-    width; returns its launch counts."""
+    width; returns its launch counts and its ``WalkResult``."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
@@ -1385,12 +1641,13 @@ def main_path(eng, pname: str, steps: int, need: tuple) -> dict:
     check_paths(eng.graph, res.paths)
     log(f"main [{pname}]: every emitted step is an edge, stopped lanes "
         f"emit -1")
-    return counts
+    return counts, res
 
 
 def fused_main_path(fused_eng, staged_eng, pname: str, steps: int):
-    """Phase 4b: one fused run and one staged run of a method; returns
-    (the fused run's K4 launches, the staged run's launch counts).  For a
+    """Phase 4c: one fused run and one staged run of a method; returns
+    (the fused run's K4 launches, the staged run's launch counts, the fused
+    run's ``WalkResult``).  For a
     program with state, the end state of both (a scheduler epoch of the
     whole walk, as ``run()`` drives it) must match too."""
     import numpy as np
@@ -1454,7 +1711,7 @@ def fused_main_path(fused_eng, staged_eng, pname: str, steps: int):
     check_paths(fused_eng.graph, a.paths)
     log(f"main [{pname}/{method}]: every emitted step is an edge, stopped "
         f"lanes emit -1")
-    return counts["fused"][name], counts["staged"]
+    return counts["fused"][name], counts["staged"], a
 
 
 def check_jump_tiles(adaptive: dict, seed: int) -> None:
@@ -1658,6 +1915,7 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
         state, keys_all, part = split.state, split.keys, split.part
         params = eng.sampler_ctx.params
         prog = eng.workload
+        base = base_program(pname)
         if split.rjs is not None and "erjs_select" in names:
             rjs = split.rjs
             cur, prev, step, idx, ws = rjs.lanes
@@ -1672,11 +1930,11 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
                          f"{what} differs from erjs_step on "
                          f"{int((x != y).sum())} of {idx.numel()} lanes")
             w_pos = weighted_proposals(eng, cur, prev, step, keys, got[2], ws)
-            b_ms, b_by = pipe_bound(*k2_work(eng, rjs, pname, w_pos))
+            b_ms, b_by = pipe_bound(*k2_work(eng, rjs, base, w_pos))
             rows["erjs_select", pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 plain_ms=plain_ms, max_abs_err=0, mismatches=0,
-                bound_ms=b_ms, bound_by=b_by, bound_note=trial_note(pname),
+                bound_ms=b_ms, bound_by=b_by, bound_note=trial_note(base),
                 **trial_stats(got[2], got[1], cfg.rjs_trials, w_pos))
         for jump, mask in ((False, split.lo), (True, split.hi)):
             name = "ervs_jump_select" if jump else "ervs_select"
@@ -1692,8 +1950,8 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
             d = degrees_of(g, cur).to(torch.float64)
             chk = torch.arange(idx.numel(), device=idx.device)
             hub_all = None
-            if jump and pname in JUMP_PLAIN_SUBSET:
-                chk = hub_and_random_walkers(cur, d, JUMP_PLAIN_SUBSET[pname],
+            if jump and base in JUMP_PLAIN_SUBSET:
+                chk = hub_and_random_walkers(cur, d, JUMP_PLAIN_SUBSET[base],
                                              JUMP_PLAIN_SEED,
                                              JUMP_PLAIN_PER_ROW)
                 hub_all = on_hub_rows(cur, d)[0]
@@ -1715,17 +1973,17 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
             note = {}
             if jump:
                 b_ms, b_by = bound(*jump_work(
-                    g, prev, d, got, pname, weighted, ring_bytes(ws, pname)))
+                    g, prev, d, got, base, weighted, ring_bytes(ws, base)))
             else:
                 if n_bad > SCAN_NEAR_TIES:
                     fail(f"{name} [{pname}] at main-path shapes: {n_bad} "
                          f"near-tie differences from the plain version, "
                          f"above the unfiltered scan's {SCAN_NEAR_TIES}")
                 b_ms, b_by = pipe_bound(*plain_scan_work(
-                    g, prev, d, pname, weighted, ring_bytes(ws, pname),
+                    g, prev, d, base, weighted, ring_bytes(ws, base),
                     cfg.tile))
                 note = dict(bound_note=pipe_note(
-                    scan_edge_bytes(pname, weighted)))
+                    scan_edge_bytes(base, weighted)))
             rows[name, pname] = dict(
                 lanes=int(idx.numel()), step=step_at, ms=ms,
                 plain_ms=plain_ms,
@@ -1768,7 +2026,7 @@ def time_kernels(engines: dict, launched: dict, reps: int) -> dict:
         del state, split
 
     for pname, eng in engines.items():
-        step_at = MID_STEP[pname]
+        step_at = mid_step(pname)
         missing = set(launched[pname])
         while missing:
             if step_at >= WALK_STEPS:
@@ -1972,15 +2230,27 @@ def k4_reservoir_work(eng, state0, emitted, flags):
             instr + n_walkers * PARITY_INSTR)
 
 
+def walker_rows(state, idx):
+    """The WalkerState of ``state``'s walkers ``idx``."""
+    from repro_torch.core.types import WalkerState, wstate_rows
+
+    return WalkerState(cur=state.cur[idx], prev=state.prev[idx],
+                       step=state.step[idx], alive=state.alive[idx],
+                       rng=state.rng[idx],
+                       wstate=wstate_rows(state.wstate, idx))
+
+
 def time_fused(fused: dict, pname: str) -> dict:
     """Phase 5b: one K4 launch of ``K4_EPOCH`` steps per regime of program
     ``pname`` from the state after ``MID_STEP`` steps, and K5 at that
     state's live lanes, each held against its plain version on the same
     state as in phase 3.  The reservoir regime, whose plain row scans take
-    minutes, is held against its plain version over
-    ``K4_RESERVOIR_PLAIN_EPOCH`` steps of every walker, and its row reports
-    that comparison (kernel, plain and bound alike); its ``K4_EPOCH``-step
-    launch is timed beside it (``epoch16_ms``)."""
+    minutes, runs ``K4_RESERVOIR_PLAIN_EPOCH`` steps of every walker, its
+    rows of ``K4_RESERVOIR_PLAIN_LANES`` walkers (hubs and random ones) are
+    held against its plain version on those walkers, and its row reports
+    that step (the kernel's time and bound on every walker, the plain
+    version's on the subset); its ``K4_EPOCH``-step launch is timed beside
+    it (``epoch16_ms``)."""
     import torch
     from repro_torch.core.ctxutil import degrees_of
     from repro_torch.core.precomp import alias_offsets
@@ -1989,7 +2259,7 @@ def time_fused(fused: dict, pname: str) -> dict:
     from repro_torch.kernels.ervs import kernel_rule
 
     rows = {}
-    step_at = MID_STEP[pname]
+    step_at = mid_step(pname)
     for kind, eng in fused.items():
         g, cfg = eng.graph, eng.config
         p = eng.sampler_ctx.params
@@ -2014,6 +2284,15 @@ def time_fused(fused: dict, pname: str) -> dict:
             got, ms = cuda_once(launch)
             b_ms, b_by = pipe_bound(*k4_reservoir_work(eng, state, got[1],
                                                        got[2]))
+            # the plain version on a subset: the kernel's rows of those
+            # walkers (walkers are independent) against it
+            chk = hub_and_random_walkers(
+                state.cur, degrees_of(g, state.cur).to(torch.float64),
+                K4_RESERVOIR_PLAIN_LANES, K4_RESERVOIR_PLAIN_SEED,
+                K4_RESERVOIR_PLAIN_PER_ROW)
+            state, got = walker_rows(state, chk), (
+                walker_rows(got[0], chk), got[1][chk], got[2][chk])
+            extra["checked"] = int(chk.numel())
         else:
             stats = {}
             b_ms, b_by = pipe_bound(*k4_work(eng, state, got[1], got[2], args,
@@ -2069,8 +2348,9 @@ def time_fused(fused: dict, pname: str) -> dict:
                  if "epoch16_ms" in r else "")
         log(f"time {name} [{pname}]: {r['lanes']} live lanes at step "
             f"{r['step']}{steps}, kernel "
-            f"{r['ms']:.4f} ms{cold_text(r)}, plain {r['plain_ms']:.4f} ms, "
-            f"bound "
+            f"{r['ms']:.4f} ms{cold_text(r)}, plain {r['plain_ms']:.4f} ms"
+            + (f" (on {r['checked']} walkers)" if "checked" in r else "")
+            + f", bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['mismatches']} "
             f"walkers differ{extra}" + trials_text(r)
             + (f"; bound counted: {r['bound_note']}" if "bound_note" in r
@@ -2829,18 +3109,20 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
-    # 1. build
+    # 1. build, then the generated rules' instances
     t0 = time.perf_counter()
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s for {len(build.SOURCES)} "
         f"sources")
+    progs = gen_programs()
+    build_generated(progs)
     for f in sorted(build.build_dir().glob("*.log")):
         # per kernel instance and non-inlined function (its mangled name
         # carries the template arguments, e.g. fused_epoch_lanesILi2ELi1E
         # = KIND 2, HOOK 1; scan_row_callILi0ELb1E = rule class 0, weighted):
         # registers, and the spill line of its function properties
         for name, what in ptxas_lines(f.read_text()):
-            log(f"ptxas {f.stem.split('-')[0]} {name[:56]}: {what}")
+            log(f"ptxas {f.stem.rsplit('-', 1)[0]} {name[:56]}: {what}")
     # the plain scan's edge loops as built, by pipe: K4's reservoir
     # instance (deepwalk runs scan_row<H, weighted>)
     for stem, kernel in SCAN_KERNELS:
@@ -2887,6 +3169,19 @@ def main() -> int:
                 f"{time.perf_counter() - t0:.1f} s, step_exec resolved "
                 f"{fused[pname][kind].step_exec_resolved!r}")
 
+    # phase 4b's engines: the stripped twins and the quickstart program
+    gen_adaptive = {label: WalkEngine(graph, prog, cfg)
+                    for label, prog in progs.items()
+                    if label != GEN + "deepwalk"}
+    gen_fused = {kind: WalkEngine(graph, progs[GEN + "deepwalk"],
+                                  EngineConfig(method=FUSED_METHODS[kind],
+                                               step_exec="fused"))
+                 for kind in COMPILER_FUSED}
+    torch.cuda.synchronize()
+    log(f"engines of phase 4b: {', '.join(gen_adaptive)} adaptive, "
+        f"{GEN}deepwalk fused in {', '.join(COMPILER_FUSED)}: flags "
+        f"{[e.compiled.flag for e in gen_adaptive.values()]}")
+
     # the table layouts the CUDA draws read (each engine builds its own in
     # its set-up), built again on a copy of the deepwalk alias engine's
     # tables to time them
@@ -2915,14 +3210,19 @@ def main() -> int:
     check_rules(adaptive, seed=13)
     for pname in FUSED_PROGRAMS:
         check_fused(graph, fused[pname], pname, seed=12)
+    check_generated(graph, adaptive, gen_adaptive, fused, gen_fused,
+                    seed=13)
     check_small_engine()
 
     # 4. the main path, one adaptive run per program, then each fused
     # method against staged
-    launches, launched = {}, {}
+    launches, launched, declared = {}, {}, {}
     for pname, eng in adaptive.items():
-        counts = main_path(eng, pname, min(args.steps, MAIN_STEPS.get(
+        counts, res = main_path(eng, pname, min(args.steps, MAIN_STEPS.get(
             pname, WALK_STEPS)), ADAPTIVE_NEEDS[pname])
+        if pname in COMPILER_ADAPTIVE:
+            declared[pname] = res  # phase 4b's twins must equal it
+        del res
         launched[pname] = [name for name, n in counts.items() if n]
         for name in launched[pname]:
             launches[name, pname] = counts[name]
@@ -2945,18 +3245,29 @@ def main() -> int:
             torch.cuda.synchronize()
             log(f"engine {pname}/{method} (staged): "
                 f"{time.perf_counter() - t0:.1f} s")
-            n, staged_counts = fused_main_path(fused[pname][kind], staged,
-                                               pname, steps)
+            n, staged_counts, res = fused_main_path(fused[pname][kind],
+                                                    staged, pname, steps)
+            if pname == "deepwalk" and kind in COMPILER_FUSED:
+                declared[kind] = res
+            del res
             launches[f"fused_epoch_{kind}", pname] = n
             if kind == "precomp_alias":
                 launches["alias_pick", pname] = staged_counts["alias_pick"]
             del staged
+
+    # 4b. the compiler: stripped twins and the quickstart program
+    gen_launches, gen_launched = compiler_main(args, declared, gen_adaptive,
+                                               gen_fused)
+    launches.update(gen_launches)
+    del declared
 
     # 5. K1 jump across tiles, then kernel times at main-path shapes
     check_jump_tiles(adaptive, seed=16)
     rows = time_kernels(adaptive, launched, args.reps)
     for pname in FUSED_PROGRAMS:
         rows.update(time_fused(fused[pname], pname))
+    rows.update(time_kernels(gen_adaptive, gen_launched, args.reps))
+    rows.update(time_fused(gen_fused, GEN + "deepwalk"))
     kernels = []
     for (name, pname), n in launches.items():
         if (name, pname) not in rows:
@@ -2964,11 +3275,12 @@ def main() -> int:
                  f"timed")
         r = rows[name, pname]
         src, replaces = SOURCES[name]
-        if name.startswith("fused_epoch") and fused[pname]["reservoir"] \
-                .workload.has_hooks:
+        if name.startswith("fused_epoch") and pname in fused \
+                and fused[pname]["reservoir"].workload.has_hooks:
             replaces = HOOK_BRANCH
         kernels.append({
             "name": f"{name}/{pname}", "route": "cuda", "source": src,
+            "rule": "generated" if pname.startswith(GEN) else "hand",
             "replaces": replaces, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

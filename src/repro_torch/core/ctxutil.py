@@ -81,7 +81,7 @@ def eval_weights(program: WalkProgram, params, ctx: EdgeCtx,
     is the walkers' program state (leaves lead with ctx's walker dim; the
     rule broadcasts them over the block's other dims), None if
     stateless."""
-    w = program.get_weight(ctx, params, wstate)
+    w = program.edge_weight(ctx, params, wstate)
     return torch.where(mask, torch.clamp_min(w, 0.0), 0.0)
 
 

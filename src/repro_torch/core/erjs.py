@@ -55,7 +55,7 @@ def erjs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
             ctx, valid = single_edge_ctx(graph, program, cur, prev, step,
                                          offset)
             w = torch.where(valid, torch.clamp_min(
-                program.get_weight(ctx, params, wstate), 0.0), 0.0)
+                program.edge_weight(ctx, params, wstate), 0.0), 0.0)
             pending = feasible & ~done
             accept = pending & (u_acc * bound <= w) & (w > 0)
             trials += pending.to(torch.int32)

@@ -190,7 +190,7 @@ def offset_keys_f64(graph: CSRGraph, program: WalkProgram, params, cur, prev,
     u = uniform_from_bits(r0 ^ r1).to(torch.float64)
     ctx, valid = single_edge_ctx(graph, program, cur, prev, step, offsets)
     w = torch.where(valid, torch.clamp_min(
-        program.get_weight(ctx, params, wstate), 0.0), 0.0).to(torch.float64)
+        program.edge_weight(ctx, params, wstate), 0.0), 0.0).to(torch.float64)
     return torch.where(w > 0, torch.log(u) / w, float("-inf"))
 
 

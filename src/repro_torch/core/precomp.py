@@ -142,7 +142,11 @@ def edge_weights_static(graph: CSRGraph, program: WalkProgram,
         prev=torch.full((E,), -1, dtype=torch.int64, device=dev),
         step=torch.zeros(E, dtype=torch.int64, device=dev),
     )
-    return torch.clamp_min(program.get_weight(ctx, params), 0.0).to(
+    # the walkers' state at its template (a static weight ignores it)
+    template = program.wstate_template(dev)
+    ws = None if template is None else tuple(
+        leaf.expand((E,) + leaf.shape) for leaf in template)
+    return torch.clamp_min(program.edge_weight(ctx, params, ws), 0.0).to(
         torch.float32)
 
 

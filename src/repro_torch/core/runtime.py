@@ -38,7 +38,8 @@ from repro_torch.core.ctxutil import (apply_hooks, degrees_of, eval_weights,
                                       tile_ctx, transition_ctx)
 from repro_torch.core.samplers import (SamplerContext, available_samplers,
                                        get_sampler)
-from repro_torch.core.types import StepStats, WalkerState, WalkProgram
+from repro_torch.core.types import (StepStats, WalkerState, WalkProgram,
+                                    from_workload)
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph, node_stats
 from repro_torch.kernels import megastep
@@ -254,6 +255,8 @@ class WalkEngine:
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
         self.graph = graph.to(self.device)
+        # a legacy Workload (or any object with its attributes) is adapted
+        workload = from_workload(workload)
         self.workload = workload
         self.sampler = get_sampler(self.config.method)
         self.stats = node_stats(self.graph,

@@ -1,14 +1,15 @@
 """Shared types of the port: edge contexts, walk programs, walker state
 (port of ``repro/core/types.py``).
 
-A :class:`WalkProgram`'s ``get_weight(ctx, params)`` evaluates the
-transition weight w̃ of a whole block of candidate edges at once: every
-:class:`EdgeCtx` field is a tensor of the block's shape.  Because a
-hand-written kernel cannot trace a Python rule, a program that runs on
-the card also names its device weight rule (``kernel_rule``), and — until
-the port's compiler lands — declares the Flexi-Compiler facts the
-reference derives from its jaxpr: the fields its weight reads, its bound
-and its Eq. 12 sum.
+A :class:`WalkProgram`'s ``get_weight(ctx, params, wstate)`` evaluates
+the transition weight w̃ of a whole block of candidate edges at once:
+every :class:`EdgeCtx` field is a tensor of the block's shape.  The
+Flexi-Compiler (``core/flexi_compiler.py``) traces it to derive its bound,
+Eq. 12 sum and taint, and ``kernels/rulegen.py`` builds it into the CUDA
+kernels as generated device code.  A program may still name a
+hand-written device rule (``kernel_rule``), which the kernels then run
+instead, and declare its bound, sum and read fields, which only the tests
+read (as the oracle the analysis is held against).
 
 Per-walker program state (``wstate``) is a tuple of tensors whose dim 0
 is the walker, the torch form of the reference's pytree leaves (or None
@@ -19,6 +20,7 @@ and ``should_stop`` see the [W] transition ctx and the [W]-leading state.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, FrozenSet, Optional, Tuple
 
 import torch
@@ -43,6 +45,7 @@ class EdgeCtx:
     step: torch.Tensor
 
 
+EDGE_FIELDS = ("h", "label", "dist", "nbr")
 NODE_FIELDS = ("deg_cur", "deg_prev", "cur", "prev", "step")
 
 #: per-walker program state: one tensor per leaf, dim 0 the walker
@@ -63,15 +66,19 @@ class WalkProgram:
     """A walk program: hyperparameters, a batched weight rule, and what the
     engine and the kernels need to know about the rule.
 
+    Declarations, read by the tests only (the engine analyses the traced
+    weight):
+
     ``reads``       EdgeCtx fields the weight's value depends on (the taint
-                    set the reference's compiler computes).
+                    set the compiler computes); None = not declared.
     ``bound``       ``bound(bi, params) -> [W]`` upper bound of w̃ over a
-                    walker's row, bitwise the reference compiler's
-                    ``bound_fn`` hi endpoint; None = no bound (eRVS only).
+                    walker's row, bitwise the compiler's ``bound_fn``.
     ``weight_sum``  ``weight_sum(bi, params) -> [W]`` Eq. 12 estimate of
-                    Σ w̃, bitwise the reference's ``sum_fn``.
-    ``kernel_rule`` ``kernel_rule(params) -> KernelRule``: the device
-                    weight function the CUDA kernels evaluate.
+                    Σ w̃, bitwise the compiler's ``sum_fn``.
+
+    ``kernel_rule`` ``kernel_rule(params) -> KernelRule``: a hand-written
+                    device rule the CUDA kernels evaluate in place of the
+                    generated one (None: the weight is generated code).
 
     Per-walker state and hooks (the reference's ``WalkProgram`` contract,
     batched):
@@ -100,7 +107,7 @@ class WalkProgram:
     on_step: Optional[Callable[[EdgeCtx, Any, WState], WState]] = None
     should_stop: Optional[Callable[[EdgeCtx, Any, WState],
                                    torch.Tensor]] = None
-    reads: FrozenSet[str] = frozenset({"h"})
+    reads: Optional[FrozenSet[str]] = None
     bound: Optional[Callable[[Any, Any], torch.Tensor]] = None
     weight_sum: Optional[Callable[[Any, Any], torch.Tensor]] = None
     kernel_rule: Optional[Callable[[Any], Any]] = None
@@ -113,6 +120,12 @@ class WalkProgram:
 
     def params(self):
         return self.init()
+
+    def edge_weight(self, ctx: EdgeCtx, params, wstate) -> torch.Tensor:
+        """The one indirection every weight evaluation goes through (the
+        engine, the compiler's trace): the legacy :class:`Workload`
+        overrides it to drop ``wstate``."""
+        return self.get_weight(ctx, params, wstate)
 
     @property
     def has_hooks(self) -> bool:
@@ -128,6 +141,43 @@ class WalkProgram:
         ws = self.init_wstate_batch(
             torch.zeros(1, dtype=torch.int64, device=device))
         return None if ws is None else tuple(leaf[0] for leaf in ws)
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload(WalkProgram):
+    """DEPRECATED: the original bare protocol (``get_weight(ctx, params)``
+    and flags).  Still constructible, and adapts into the
+    :class:`WalkProgram` contract with the same paths and telemetry: its
+    weight traces to the same graph.  New code constructs
+    :class:`WalkProgram` directly."""
+
+    def __post_init__(self):
+        warnings.warn(
+            "Workload is deprecated; define a WalkProgram instead "
+            "(get_weight takes (ctx, params, wstate), and per-walker "
+            "state / on_step / should_stop become available)",
+            DeprecationWarning, stacklevel=3)
+
+    def edge_weight(self, ctx: EdgeCtx, params, wstate) -> torch.Tensor:
+        return self.get_weight(ctx, params)  # the legacy two-argument rule
+
+
+def from_workload(workload) -> WalkProgram:
+    """Any legacy workload object (a :class:`Workload`, or anything with
+    its attributes) as a :class:`WalkProgram` whose ``get_weight`` drops
+    the (empty) ``wstate``: the same traced graph, so the same analysis
+    and paths.  A program already speaking the new protocol is returned
+    as it is."""
+    if isinstance(workload, WalkProgram) and not isinstance(workload,
+                                                            Workload):
+        return workload
+    legacy_gw = workload.get_weight
+    return WalkProgram(
+        name=workload.name, init=workload.init,
+        get_weight=lambda ctx, params, wstate: legacy_gw(ctx, params),
+        needs_dist=workload.needs_dist, needs_labels=workload.needs_labels,
+        num_labels=workload.num_labels, weighted=workload.weighted,
+        walk_len=workload.walk_len)
 
 
 @dataclasses.dataclass

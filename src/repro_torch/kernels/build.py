@@ -7,6 +7,13 @@ Libraries are named by a hash of their sources and flags, so a build is
 reused until a source changes.  Nothing is built at import: the first
 kernel launch builds, and :func:`build_all` builds ahead of time.
 
+A program without a hand-written device rule runs a generated one
+(``kernels/rulegen.py``): its header is written to ``_build/gen-<hash>/
+generated_rule.cuh`` and ``ervs.cu``, ``erjs.cu`` and ``megastep.cu`` are
+built again with ``-DREPRO_GENERATED_RULE`` against it
+(:data:`GENERATED_SOURCES`), into libraries whose name hashes the header
+with the sources and flags, so two programs never share one.
+
 Flags: ``-gencode arch=compute_90a,code=sm_90a`` for Hopper, ``-O3``,
 ``-fmad=false`` (no multiply-add contraction: the reference rounds each
 multiply and add; the sources also use ``__f*_rn``), and never
@@ -27,6 +34,8 @@ from repro_torch.kernels.rules import RuleStruct
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ervs.cu", "erjs.cu", "its.cu", "alias.cu", "megastep.cu",
            "ervs_block.cu", "erjs_block.cu", "token_sample.cu")
+#: the sources a generated rule builds instances of (K1, K2, K4)
+GENERATED_SOURCES = ("ervs.cu", "erjs.cu", "megastep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -41,7 +50,9 @@ LAUNCHES: Dict[str, int] = {
     "erjs_block_select": 0, "its_search_aligned": 0,
     "alias_pick_aligned": 0, "token_sample": 0}
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+#: loaded libraries: by source stem, and by (stem, header) for the
+#: instances of a generated rule
+_LIBS: Dict[object, ctypes.CDLL] = {}
 
 #: kernels' scratch tensors, by (name, device index, raw stream)
 SCRATCH: Dict[Tuple[str, Optional[int], int], "torch.Tensor"] = {}
@@ -68,26 +79,49 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
-def _lib_path(source: str) -> Path:
+def _key(stem: str, header: str):
+    return (stem, header) if header else stem
+
+
+def _gen_dir(header: str) -> Path:
+    digest = hashlib.sha256(header.encode()).hexdigest()[:16]
+    return build_dir() / f"gen-{digest}"
+
+
+def _lib_path(source: str, header: str = "") -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         digest.update(f.read_bytes())
-    return build_dir() / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
+    stem = Path(source).stem
+    if header:
+        digest.update(header.encode())
+        stem += "-gen"
+    return build_dir() / f"{stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile every missing library (one ``nvcc`` per source, all started
-    together), load them all, and return them by source stem."""
+def build_all(headers=("",)) -> Dict[object, ctypes.CDLL]:
+    """Compile every missing library (one ``nvcc`` per source and header,
+    all started together): every source for the header "" (the
+    hand-written rules), :data:`GENERATED_SOURCES` for each generated
+    header.  Load them all and return them, by source stem (and header)."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    wanted = [(src, h) for h in headers
+              for src in (GENERATED_SOURCES if h else SOURCES)]
     jobs = []
-    for src in SOURCES:
-        lib = _lib_path(src)
-        if lib.exists() or Path(src).stem in _LIBS:
+    for src, header in wanted:
+        lib = _lib_path(src, header)
+        if lib.exists() or _key(Path(src).stem, header) in _LIBS:
             continue
+        flags = list(NVCC_FLAGS)
+        if header:
+            gen = _gen_dir(header)
+            gen.mkdir(parents=True, exist_ok=True)
+            (gen / "generated_rule.cuh").write_text(header)
+            flags += ["-DREPRO_GENERATED_RULE", "-I", str(gen)]
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         log = open(lib.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(CSRC / src)]
         jobs.append((src, lib, tmp, log,
                      subprocess.Popen(cmd, stdout=log,
                                       stderr=subprocess.STDOUT)))
@@ -102,10 +136,11 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for src in SOURCES:
+    for src, header in wanted:
         stem = Path(src).stem
-        if stem not in _LIBS:
-            _LIBS[stem] = _bind(stem, ctypes.CDLL(str(_lib_path(src))))
+        if _key(stem, header) not in _LIBS:
+            _LIBS[_key(stem, header)] = _bind(
+                stem, ctypes.CDLL(str(_lib_path(src, header))))
     return _LIBS
 
 
@@ -145,11 +180,12 @@ def _bind(stem: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def library(stem: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<stem>.cu`` (building on first use)."""
-    if stem not in _LIBS:
-        build_all()
-    return _LIBS[stem]
+def library(stem: str, header: str = "") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu`` (building on first use),
+    the instance of the generated rule ``header`` where one is given."""
+    if _key(stem, header) not in _LIBS:
+        build_all((header,))
+    return _LIBS[_key(stem, header)]
 
 
 def scratch(name: str, device, stream: int, numel: int, dtype):

@@ -124,10 +124,7 @@ __device__ __forceinline__ bool erjs_passes(const Graph& g, const Rule& rule,
                                             int budget, bool want,
                                             ErjsResult& res) {
   const int lane = threadIdx.x & 31;
-  const bool dist_rule = rule.program == PROGRAM_NODE2VEC ||
-                         rule.program == PROGRAM_SECOND_ORDER_PR ||
-                         rule.program == PROGRAM_VISITED;
-  const int max_shift = dist_rule ? 0 : 5;  // at most 2^max_shift walkers
+  const int max_shift = reads_dist(rule) ? 0 : 5;  // at most 2^max_shift walkers
   bool done = false;
   int next = trials;  // this lane's walker's next trial
   unsigned pending = __ballot_sync(kFullWarp, want && trials < budget);

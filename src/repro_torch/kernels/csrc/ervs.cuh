@@ -36,7 +36,8 @@
 //     walker step: DeepWalk and PPR-Nibble read h (nothing when
 //     unweighted), MetaPath its label too, and only Node2Vec, 2nd-order
 //     PageRank and visited-avoiding read each edge's neighbour; the others
-//     read the winner's once.  An edge's reads are issued before its
+//     read the winner's once.  A generated rule (kScanGenerated) reads
+//     what its generated_weight reads (kGenReads*, weights.cuh).  An edge's reads are issued before its
 //     Threefry, which does not wait on them;
 //   * the dist(v', u) test walks a cursor per thread through v''s sorted
 //     row (search_from; a thread's neighbours rise with its offsets) in
@@ -155,6 +156,7 @@ constexpr int kScanH = 0;         // DeepWalk, PPR-Nibble: w = h
 constexpr int kScanMetaPath = 1;  // [label == the step's label] * h
 constexpr int kScanDist = 2;      // Node2Vec, 2nd-order PageRank: f[dist] * h
 constexpr int kScanVisited = 3;   // the same, 0 for a neighbour in the ring
+constexpr int kScanGenerated = 4; // PROGRAM_GENERATED: generated_weight
 
 // One walker's scan: its row, the step key, and the rule's per-walker
 // constants.  The dist rules' weight is f[dist(v', u)] * h: Node2Vec's
@@ -185,16 +187,32 @@ __device__ __forceinline__ EdgeIn load_edge(const Graph& g, int64_t pos) {
   if (W) e.h = __ldg(g.h + pos);
   if (RC == kScanMetaPath) e.label = __ldg(g.labels + pos);
   if (RC == kScanDist || RC == kScanVisited) e.nbr = __ldg(g.indices + pos);
+  if (RC == kScanGenerated) {
+    if (kGenReadsLabel) e.label = __ldg(g.labels + pos);
+    if (kGenReadsNbr) e.nbr = __ldg(g.indices + pos);
+  }
   return e;
 }
 
 // The edge's w~, clamped at 0, with the operations of edge_weight
 // (weights.cuh) in the same order, so the bits are the same.
+// `wc`: the walker, read by a generated rule only.
 template <int RC, bool W>
 __device__ __forceinline__ float scan_weight(const ScanArgs& a,
-                                             const EdgeIn& e, int& cursor) {
+                                             const EdgeIn& e, int& cursor,
+                                             const WalkerCtx* wc) {
   float x = e.h;
-  if (RC == kScanMetaPath) {
+  if constexpr (RC == kScanGenerated) {
+#ifdef REPRO_GENERATED_RULE
+    x = generated_weight(*wc, e.h, e.label, e.nbr, [&]() -> long long {
+      return a.prev < 0 ? 1
+             : e.nbr == a.prev
+                 ? 0
+                 : (search_from(a.g.indices, cursor, a.p_begin, a.p_end,
+                                e.nbr) ? 1 : 2);
+    });
+#endif
+  } else if (RC == kScanMetaPath) {
     x = __fmul_rn(e.label == a.label ? 1.0f : 0.0f, e.h);
   } else if (RC == kScanDist || RC == kScanVisited) {
     bool tabu = false;
@@ -224,7 +242,8 @@ __device__ __forceinline__ float scan_weight(const ScanArgs& a,
 // key from the window (one vote a pass says whether any did).
 template <int RC, bool W>
 __device__ __forceinline__ Best scan_row(const ScanArgs& a,
-                                         const ScanTile& st, int lane) {
+                                         const ScanTile& st, int lane,
+                                         const WalkerCtx* wc = nullptr) {
   Best best{-CUDART_INF_F, INT32_MAX};
   uint32_t tk0, tk1;  // the key of this thread's tile
   int w0 = -32;       // the warp's window of keys, tiles w0 + lane (none yet)
@@ -241,7 +260,7 @@ __device__ __forceinline__ Best scan_row(const ScanArgs& a,
     // the draw first, so the edge's reads land while it runs; MetaPath,
     // whose weight is mostly 0, draws only for a positive weight
     float u = RC == kScanMetaPath ? 0.0f : draw();
-    const float w = scan_weight<RC, W>(a, e, cursor);
+    const float w = scan_weight<RC, W>(a, e, cursor, wc);
     if (RC == kScanMetaPath && w > 0.0f) u = draw();
     if ((w > 0.0f) & may_beat(u, w, best.key)) {
       const float lk = __fdiv_rn(logf(u), w);
@@ -317,6 +336,15 @@ __device__ __noinline__ Best scan_row_call(const ScanArgs a,
   return scan_row<RC, W>(a, st, lane);
 }
 
+// The generated rule's scan, a function of its own like scan_row_call; it
+// also takes the walker, which generated_weight reads.
+template <bool W>
+__device__ __noinline__ Best scan_row_generated(const ScanArgs a,
+                                                const ScanTile st, int lane,
+                                                const WalkerCtx wc) {
+  return scan_row<kScanGenerated, W>(a, st, lane, &wc);
+}
+
 // The scan of rule class RC.
 template <int RC>
 __device__ __forceinline__ Best scan_rule(bool weighted, const ScanArgs& a,
@@ -356,10 +384,7 @@ __device__ __forceinline__ int64_t ervs_warp_select(const Graph& g,
   a.label = 0;
   a.window = rule.window;
   a.f0 = a.f1 = a.f2 = 1.0f;
-  const bool dist_rule = rule.program == PROGRAM_NODE2VEC ||
-                         rule.program == PROGRAM_SECOND_ORDER_PR ||
-                         rule.program == PROGRAM_VISITED;
-  if (dist_rule && wc.prev >= 0) {
+  if (reads_dist(rule) && wc.prev >= 0) {
     a.p_begin = g.indptr[wc.prev];
     a.p_end = g.indptr[wc.prev + 1];
   }
@@ -390,6 +415,12 @@ __device__ __forceinline__ int64_t ervs_warp_select(const Graph& g,
       top = scan_rule<kScanDist>(rule.weighted, a, st, lane);
       break;
     }
+#ifdef REPRO_GENERATED_RULE
+    case PROGRAM_GENERATED:
+      top = rule.weighted ? scan_row_generated<true>(a, st, lane, wc)
+                          : scan_row_generated<false>(a, st, lane, wc);
+      break;
+#endif
     default:  // DeepWalk, PPR-Nibble
       top = scan_rule<kScanH>(rule.weighted, a, st, lane);
       break;

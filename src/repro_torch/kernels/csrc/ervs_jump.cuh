@@ -56,14 +56,12 @@ __device__ __forceinline__ JumpWalker jump_walker(
     const int64_t* __restrict__ prev, const int64_t* __restrict__ step,
     const int32_t* __restrict__ ring, int64_t w) {
   const int64_t c = cur[w], p = prev[w];
-  const bool dist = p >= 0 && (rule.program == PROGRAM_NODE2VEC ||
-                               rule.program == PROGRAM_SECOND_ORDER_PR ||
-                               rule.program == PROGRAM_VISITED);
+  const bool prow = p >= 0 && (reads_dist(rule) || reads_deg_prev(rule));
   const int32_t s0 = g.indptr[c], s1 = g.indptr[c + 1];
-  const int32_t p0 = dist ? g.indptr[p] : 0, p1 = dist ? g.indptr[p + 1] : 0;
+  const int32_t p0 = prow ? g.indptr[p] : 0, p1 = prow ? g.indptr[p + 1] : 0;
   JumpWalker jw;
   jw.ctx = WalkerCtx{c, p, step[w], s1 - s0,
-                     rule.program == PROGRAM_SECOND_ORDER_PR ? p1 - p0 : 0,
+                     reads_deg_prev(rule) ? p1 - p0 : 0,
                      ring ? ring + w * rule.window : nullptr};
   jw.start = s0;
   jw.p_begin = p0;

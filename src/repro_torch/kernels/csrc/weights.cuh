@@ -1,9 +1,12 @@
-// Device rules of the walk programs the kernels serve.  A Python rule
-// cannot be traced into a hand-written kernel, so the wrapper passes a
-// program id (repro_torch/kernels/rules.py), its float32 constants and,
+// Device rules of the walk programs the kernels serve.  The wrapper passes
+// a program id (repro_torch/kernels/rules.py), its float32 constants and,
 // for a program with on_step / should_stop hooks, a hook id; the kernels
 // evaluate the rule here with the reference's float32 operations, each
-// rounded on its own (__f*_rn, never an FMA):
+// rounded on its own (__f*_rn, never an FMA).  PROGRAM_GENERATED is any
+// other program: its traced weight, generated as generated_weight() by
+// repro_torch/kernels/rulegen.py into generated_rule.cuh, which a source
+// built with -DREPRO_GENERATED_RULE includes (each generated rule builds
+// its own instances of the kernels).  The hand-written rules:
 //   DeepWalk, PPR-Nibble  w = h
 //   Node2Vec              w = factor(dist) * h
 //   MetaPath              w = [label == schema[step mod L]] * h
@@ -25,6 +28,7 @@ constexpr int PROGRAM_METAPATH = 2;
 constexpr int PROGRAM_SECOND_ORDER_PR = 3;
 constexpr int PROGRAM_VISITED = 4;
 constexpr int PROGRAM_PPR_NIBBLE = 5;
+constexpr int PROGRAM_GENERATED = 6;
 constexpr int kMaxSchema = 8;
 
 constexpr int HOOK_NONE = 0;
@@ -57,18 +61,43 @@ struct WalkerCtx {
   const int32_t* ring;  // [window] of the walker (visited-avoiding), or null
 };
 
+#ifdef REPRO_GENERATED_RULE
+}  // namespace repro
+#include "xla_math.cuh"
+#include "generated_rule.cuh"
+namespace repro {
+#else
+constexpr bool kGenReadsLabel = false;
+constexpr bool kGenReadsNbr = false;
+constexpr bool kGenReadsDist = false;
+constexpr bool kGenReadsDegPrev = false;
+#endif
+
+// Whether the rule reads dist(v', u), and so v''s row.
+__device__ __forceinline__ bool reads_dist(const Rule& rule) {
+  return rule.program == PROGRAM_NODE2VEC ||
+         rule.program == PROGRAM_SECOND_ORDER_PR ||
+         rule.program == PROGRAM_VISITED ||
+         (kGenReadsDist && rule.program == PROGRAM_GENERATED);
+}
+
+// Whether the rule reads d(v').
+__device__ __forceinline__ bool reads_deg_prev(const Rule& rule) {
+  return rule.program == PROGRAM_SECOND_ORDER_PR ||
+         (kGenReadsDegPrev && rule.program == PROGRAM_GENERATED);
+}
+
 // degrees_of(): 0 for the -1 sentinel.
 __device__ __forceinline__ int degree(const Graph& g, int64_t v) {
   return v >= 0 ? g.indptr[v + 1] - g.indptr[v] : 0;
 }
 
-// deg_prev is read only by the rule that needs it (2nd-order PageRank).
+// deg_prev is read only by the rules that need it (reads_deg_prev).
 __device__ __forceinline__ WalkerCtx walker_ctx(const Graph& g,
                                                 const Rule& rule, int64_t cur,
                                                 int64_t prev, int64_t step,
                                                 const int32_t* ring) {
-  const int deg_prev =
-      rule.program == PROGRAM_SECOND_ORDER_PR ? degree(g, prev) : 0;
+  const int deg_prev = reads_deg_prev(rule) ? degree(g, prev) : 0;
   return WalkerCtx{cur, prev, step, degree(g, cur), deg_prev, ring};
 }
 
@@ -167,6 +196,13 @@ __device__ __forceinline__ float edge_weight_by(const Graph& g,
       x = tabu ? 0.0f : n2v_weight(rule, dist(), h);
       break;
     }
+#ifdef REPRO_GENERATED_RULE
+    case PROGRAM_GENERATED:
+      x = generated_weight(
+          w, h, kGenReadsLabel ? static_cast<long long>(g.labels[pos]) : 0LL,
+          nbr, [&]() -> long long { return dist(); });
+      break;
+#endif
     default:  // DeepWalk, PPR-Nibble: h * 1.0
       break;
   }

@@ -38,7 +38,7 @@ def erjs_select(graph, program, params, cur, prev, step, keys, bound, *,
     used = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out, fallback, used
-    lib = build.library("erjs")
+    lib = build.library("erjs", rule.header)
     rs = rule.as_struct()
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the walkers left after round 0, listed for the later rounds' launch

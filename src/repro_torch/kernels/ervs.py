@@ -4,7 +4,8 @@
 keys (``jump=False``) or the lane-strided A-ExpJ variant (``jump=True``).
 On CPU tensors it runs the plain versions ``core.ervs.ervs_step`` /
 ``ervs_jump_step``; on CUDA tensors it launches the kernel (building it
-on first use) or raises.
+on first use: a program without a hand-written rule gets its own instance
+of the kernel, built from its generated rule) or raises.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.core.ervs import ervs_jump_step, ervs_step
-from repro_torch.kernels import build
+from repro_torch.kernels import build, rulegen
 from repro_torch.kernels.rules import (DEEPWALK, METAPATH, NODE2VEC,
                                        PPR_NIBBLE, SECOND_ORDER_PR, VISITED,
                                        KernelRule)
@@ -24,9 +25,14 @@ DEVICE_RULES = (DEEPWALK, NODE2VEC, METAPATH, SECOND_ORDER_PR, VISITED,
 
 
 def kernel_rule(program, params) -> KernelRule:
-    """The program's device weight rule; raises for programs the kernels do
-    not implement."""
-    rule = program.kernel_rule(params) if program.kernel_rule else None
+    """The program's device weight rule: its hand-written rule where it
+    names one, else the rule generated from its traced weight
+    (``rulegen.generated_rule``, whose ``header`` selects the library).
+    Raises where neither exists: a hand rule the kernels do not implement,
+    or a weight rulegen cannot lower (the error names the op or field)."""
+    if program.kernel_rule is None:
+        return rulegen.generated_rule(program, params)
+    rule = program.kernel_rule(params)
     if rule is None or rule.program not in DEVICE_RULES:
         raise ValueError(f"program {program.name!r} has no device weight "
                          f"rule the CUDA kernels implement")
@@ -70,7 +76,7 @@ def ervs_select(graph, program, params, cur, prev, step, keys, *,
     out = torch.empty(n, dtype=torch.int64, device=dev)
     if n == 0:
         return out
-    lib = build.library("ervs")
+    lib = build.library("ervs", rule.header)
     rs = rule.as_struct()
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the jump instance lists the walkers a whole block serves

@@ -153,7 +153,7 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
                       wstate=state.wstate if mass is None else (out_mass,))
     if W == 0:
         return out, emitted, flags
-    lib = build.library("megastep")
+    lib = build.library("megastep", rule.header)
     rs = rule.as_struct()
     ptr_of = lambda t: None if t is None else t.data_ptr()
     err = lib.repro_fused_epoch(

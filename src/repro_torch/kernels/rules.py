@@ -1,10 +1,12 @@
 """Device rules the CUDA kernels evaluate (``csrc/weights.cuh``).
 
-A hand-written kernel cannot trace a Python rule, so a program that runs
-on the card names one of these rules and its float32 constants: a
-:class:`KernelRule` for its transition weight (kernels K1, K2, K4) and,
-when it has ``on_step`` / ``should_stop`` hooks, a :class:`HookRule` for
-them (K4).  The ids must match ``PROGRAM_*`` and ``HOOK_*`` in
+A program's transition weight runs in kernels K1, K2 and K4 as a
+:class:`KernelRule`: one of the hand-written rules below with its float32
+constants, where the program names one, else ``GENERATED``, whose
+``header`` holds the device code ``kernels/rulegen.py`` generates from
+the traced weight (each header builds its own instances of the kernels).
+When it has ``on_step`` / ``should_stop`` hooks, K4 runs them as a
+:class:`HookRule`.  The ids must match ``PROGRAM_*`` and ``HOOK_*`` in
 ``csrc/weights.cuh``.  Constants are rounded to float32 on the host, as
 jax rounds the Python constants of the reference's rules.
 """
@@ -22,6 +24,7 @@ METAPATH = 2
 SECOND_ORDER_PR = 3
 VISITED = 4
 PPR_NIBBLE = 5
+GENERATED = 6
 
 #: longest MetaPath schema a device rule holds (``kMaxSchema``)
 MAX_SCHEMA = 8
@@ -61,6 +64,7 @@ class KernelRule:
     g: float = 0.0
     schema: Tuple[int, ...] = ()
     window: int = 0
+    header: str = dataclasses.field(default="", repr=False)
 
     def as_struct(self) -> RuleStruct:
         s = RuleStruct(program=self.program, weighted=int(self.weighted),

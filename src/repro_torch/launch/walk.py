@@ -7,27 +7,36 @@
 ``--device cpu`` runs the kernels' plain PyTorch versions instead;
 ``--step-exec fused`` runs each epoch as one fused launch where the
 (method × workload) cell allows it (the summary prints which path ran).
+``--workload module:factory`` imports ``module``, registers ``factory``
+under that name at run time and runs it, e.g. ``--workload
+repro_torch.walks.examples:degree_damped``: a user program that declares
+nothing, analysed by the compiler (the flag line) and run on the card as
+generated device code.
 """
 from __future__ import annotations
 
 import argparse
 import ast
+import importlib
 import time
 
 import numpy as np
 
-from repro_torch.core import EngineConfig, WalkEngine, available_samplers
+from repro_torch.core import (EngineConfig, WalkEngine, available_samplers,
+                              flexi_compiler)
 from repro_torch.core.runtime import STEP_EXEC_CHOICES
 from repro_torch.device import DEVICES
 from repro_torch.graphs import power_law_graph, random_graph
 from repro_torch.kernels import build
-from repro_torch.walks import WORKLOADS, make_workload
+from repro_torch.walks import WORKLOADS, make_workload, register_workload
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.walk")
-    ap.add_argument("--workload", choices=sorted(WORKLOADS),
-                    default="node2vec")
+    ap.add_argument("--workload", default="node2vec",
+                    help=f"a registered workload "
+                         f"({', '.join(sorted(WORKLOADS))}) or "
+                         f"module:factory, registered at run time")
     ap.add_argument("--list-workloads", action="store_true",
                     help="print the registered workload names and exit")
     ap.add_argument("--workload-arg", action="append", default=[],
@@ -75,6 +84,20 @@ def parse_workload_args(pairs) -> dict:
     return kw
 
 
+def resolve_workload(name: str) -> str:
+    """``name`` itself when registered; a ``module:factory`` name is
+    imported and registered under that name first."""
+    if name in WORKLOADS:
+        return name
+    module, sep, attr = name.partition(":")
+    if not sep:
+        raise SystemExit(f"unknown workload {name!r}: registered are "
+                         f"{', '.join(sorted(WORKLOADS))}, or give "
+                         f"module:factory")
+    register_workload(name, getattr(importlib.import_module(module), attr))
+    return name
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.list_workloads:
@@ -86,14 +109,16 @@ def main(argv=None):
                 alpha=args.alpha, seed=args.seed)
     print(f"[walk] graph: V={graph.num_nodes} E={graph.num_edges} "
           f"maxdeg={graph.max_degree()}")
-    wl = make_workload(args.workload, **parse_workload_args(args.workload_arg))
+    wl = make_workload(resolve_workload(args.workload),
+                       **parse_workload_args(args.workload_arg))
     eng = WalkEngine(graph, wl, EngineConfig(method=args.method,
                                              seed=args.seed,
                                              device=args.device,
                                              step_exec=args.step_exec))
     print(f"[walk] compiler flag: {eng.compiled.flag} "
-          f"warnings={eng.compiled.warnings} device={eng.device} "
-          f"step_exec={eng.step_exec_resolved}")
+          f"static={flexi_compiler.is_static(wl)} "
+          f"fusable={eng.fuse.fusable} warnings={eng.compiled.warnings} "
+          f"device={eng.device} step_exec={eng.step_exec_resolved}")
     starts = np.arange(args.queries) % graph.num_nodes
     build.reset_launches()
     t0 = time.time()

@@ -4,16 +4,16 @@ programs the bare ``Workload`` protocol could not express — a
 visited-avoiding second-order walk and an ε-terminating PPR-Nibble walk
 (port of ``repro/walks/workloads.py``).
 
-Each program's ``get_weight`` is a batched torch rule; its declared bound
-and Eq. 12 sum repeat, operation for operation in float32, what the
-reference compiler's interval and enumeration passes compute from the
-jaxpr of the same rule, so the cost-model decisions match bitwise.  Its
-declared ``reads`` (and ``needs_dist`` / ``needs_labels``) stand for the
-reference's taint set: they decide the flag, the static regime and
-``flexi_compiler.fuse_report``.  Each names its device weight rule
-(``kernel_rule``), and PPR-Nibble the device form of its hooks
-(``hook_rule``), which the fused epoch runs; constants are float32, as
-the reference's traced Python constants are.
+Each program's ``get_weight`` is a batched torch rule, which the
+Flexi-Compiler (``core/flexi_compiler.py``) traces and analyses like any
+user program.  The declared bound, Eq. 12 sum and ``reads`` repeat, in
+float32, what the reference compiler derives from the jaxpr of the same
+rule; the engine does not read them: they are the oracle the tests hold
+the analysis against.  Each names a hand-written device weight rule
+(``kernel_rule``), which the kernels run in place of a generated one, and
+PPR-Nibble the device form of its hooks (``hook_rule``), which the fused
+epoch runs; constants are float32, as the reference's traced Python
+constants are.
 """
 from __future__ import annotations
 
@@ -410,7 +410,9 @@ def make_workload(name: str, **kw) -> WalkProgram:
 
 def register_workload(name: str, factory, *, overwrite: bool = False):
     """Register a walk-program factory by name (the counterpart of
-    ``core.samplers.register_sampler`` on the workload axis)."""
+    ``core.samplers.register_sampler`` on the workload axis).  The program
+    needs no declarations: the engine analyses its traced weight, and the
+    kernels run it as generated device code."""
     if name in WORKLOADS and not overwrite:
         existing = WORKLOADS[name]
         existing_name = getattr(existing, "__name__",

@@ -157,11 +157,17 @@ def test_cost_model_decisions_match():
 
 def test_kernel_rule_of_ported_programs():
     """The device rule carries the reference's float32 constants; a program
-    without a rule the kernels implement is refused."""
+    without a hand-written rule gets the rule generated from its weight,
+    and one whose weight cannot be lowered is refused, naming the op."""
     n2v = make_workload("node2vec", a=3.0, b=0.7)
     rule = kernel_rule(n2v, n2v.params())
     assert rule.c0 == np.float32(1 / 3.0) and rule.c2 == np.float32(1 / 0.7)
     import dataclasses
+
+    from repro_torch.kernels.rules import GENERATED
     bare = dataclasses.replace(make_workload("deepwalk"), kernel_rule=None)
-    with pytest.raises(ValueError, match="no device weight rule"):
-        kernel_rule(bare, ())
+    assert kernel_rule(bare, ()).program == GENERATED
+    unlowerable = dataclasses.replace(
+        bare, get_weight=lambda c, p, ws: torch.cumsum(c.h, dim=-1))
+    with pytest.raises(ValueError, match="cumsum"):
+        kernel_rule(unlowerable, ())
