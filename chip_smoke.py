@@ -8,8 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build   — compile K1–K8 from ``src/repro_torch/kernels/csrc`` with nvcc
              (one process per source, in parallel); then lower phase 4b's
-             programs to generated device rules (``kernels/rulegen.py``)
-             and build their instances of K1, K2 and K4 (``ervs.cu``,
+             and 4c's programs to generated device rules
+             (``kernels/rulegen.py``: weights, state reads and hooks) and
+             build their instances of K1, K2 and K4 (``ervs.cu``,
              ``erjs.cu``, ``megastep.cu`` against each generated header,
              all together), logging the seconds.
 1b. lm     — LM serving at full width: ``qwen3-0.6b`` (28 layers, d_model
@@ -84,8 +85,14 @@ Phases (any failure exits non-zero and prints no result line):
              walkers the hand rules were held on, against their plain
              versions and bitwise against the hand rules' launches, and
              K4 under stripped deepwalk's rule (rejection, precomp_its)
-             likewise; then the whole engine on a small graph, kernels
-             (cuda) against plain versions (cpu).
+             likewise (visited_avoiding's twin: a generated rule that
+             reads the ring, against the hand VISITED rule); (3e) K4's
+             HOOK_GENERATED instances (ppr_nibble stripped of its hook
+             rule) in the four regimes as in 3c, also bitwise against
+             HOOK_PPR_NIBBLE's launch, and K4's reservoir under the
+             quickstart program and non_backtracking (generated weight,
+             state and hooks); then the whole engine on a small graph,
+             kernels (cuda) against plain versions (cpu).
 4. main    — ``WalkEngine(graph, make_workload(name), EngineConfig(
              method="adaptive", jump_threshold=8)).run(np.arange(V),
              num_steps=80)`` for every registry program (node2vec,
@@ -118,6 +125,17 @@ Phases (any failure exits non-zero and prints no result line):
              staged in torch) runs adaptive over 80 steps, must be
              PER_STEP and not static, and must launch K1 and K2.  Each
              twin's steps phase is logged beside its declared program's.
+             Stripped visited_avoiding (a generated weight reading the
+             ring) runs with them, against its phase-4 run.
+4c. state and hooks — ppr_nibble stripped of its hook rule too runs
+             fused under ervs / erjs / its_precomp / alias_precomp at the
+             declared pairs' depth: each must resolve "fused", launch K4's
+             HOOK_GENERATED instance and give the declared fused run's
+             paths, telemetry and end state (mass included) bit for bit;
+             the quickstart program (80 steps) and non_backtracking
+             (``NONBACKTRACKING_STEPS``, 16) run fused under ervs (K4 with
+             a generated weight, state and hooks) and must equal their
+             staged ervs runs likewise.
 5. timing  — each kernel and its plain version on the lanes one main-path
              step hands it (the state after ``MID_STEP`` steps: 8, or 4
              for the short MetaPath and PPR-Nibble walks) under each
@@ -144,8 +162,8 @@ Phases (any failure exits non-zero and prints no result line):
              random ones) are held
              against the plain version on them, and the 16-step launch is
              timed beside it.  The generated rules' kernels are timed and
-             held the same way on phase 4b's engines (rows
-             ``.../gen:<program>``).
+             held the same way on phase 4b's and 4c's engines (rows
+             ``.../gen:<program>``, ``.../gen-hooks:ppr_nibble``).
              K3, K5, their aligned entries (phase 2b) and K4's table
              regimes are also timed cold, with L2 flushed before each
              launch (``cold_ms``), as the main path meets them between
@@ -278,8 +296,12 @@ MID_STEP = {name: 4 if name.startswith("metapath") or name == "ppr_nibble"
 
 def base_program(pname: str) -> str:
     """The registry program a row's program label stands for: a stripped
-    twin ``gen:<name>`` is ``<name>``."""
-    return pname[len(GEN):] if pname.startswith(GEN) else pname
+    twin ``gen:<name>`` or ``gen-hooks:<name>`` is ``<name>``."""
+    for prefix in (GEN, GEN_HOOKS):
+        if pname.startswith(prefix):
+            return pname[len(prefix):]
+    return pname
+
 
 
 def mid_step(pname: str) -> int:
@@ -329,6 +351,19 @@ COMPILER_ADAPTIVE = ("node2vec", "metapath")
 COMPILER_FUSED = ("rejection", "precomp_its")
 QUICKSTART = "degree_damped"
 GEN = "gen:"
+# phase 4c, state and hooks: visited_avoiding stripped of its hand rule (a
+# generated weight that reads the ring) adaptive against the declared
+# program's phase-4 run; ppr_nibble stripped of its hook rule too (K4's
+# HOOK_GENERATED instances), label GEN_HOOKS + name, fused under every
+# method against the declared fused runs; the quickstart program and
+# non_backtracking (walks.examples) fused under ervs against their staged
+# runs, non_backtracking over NONBACKTRACKING_STEPS
+STATE_ADAPTIVE = ("visited_avoiding",)
+GEN_HOOKS = "gen-hooks:"
+HOOKED_FUSED = "ppr_nibble"
+NONBACKTRACKING = "non_backtracking"
+NONBACKTRACKING_STEPS = 16
+USER_FUSED = (QUICKSTART, NONBACKTRACKING)
 # main-path depth of the adaptive programs cut below WALK_STEPS to keep the
 # smoke inside its time limit (2ndpr: 140 s at 80 steps)
 MAIN_STEPS = {"2ndpr": 16}
@@ -1280,10 +1315,13 @@ def k4_mismatches(eng, state0, got, want, tile: int):
     return len(bad), unexplained
 
 
-def check_fused(graph, fused: dict, pname: str, seed: int) -> None:
-    """Phase 3c: K5 and every K4 instance of program ``pname`` (``fused``:
-    its engine per regime) against their plain versions on the card, on
-    check walkers of the full graph (hubs included)."""
+def check_fused(graph, fused: dict, pname: str, seed: int,
+                hand: dict = None) -> None:
+    """Phase 3c: K5 (where ``fused`` has the alias regime) and every K4
+    instance of program ``pname`` (``fused``: its engine per regime)
+    against their plain versions on the card, on check walkers of the
+    full graph (hubs included); with ``hand`` (the declared program's
+    engine per regime), also bitwise against the hand rules' launch."""
     import torch
     from repro_torch.core.precomp import alias_offsets
     from repro_torch.core.types import WalkerState
@@ -1291,14 +1329,15 @@ def check_fused(graph, fused: dict, pname: str, seed: int) -> None:
     from repro_torch.kernels.alias import alias_pick
 
     cur, prev, keys = walkers(graph, 4096, seed)
-    tables = fused["precomp_alias"].precomp
-    got = alias_pick(graph, tables, cur, keys)
-    want = alias_offsets(graph, tables, cur, keys)
-    if not torch.equal(got, want):
-        fail(f"alias_pick differs from alias_offsets on "
-             f"{int((got != want).sum())} of {cur.numel()} walkers")
-    log(f"check alias_pick [{pname}]: {cur.numel()} walkers, bitwise equal "
-        f"to alias_offsets")
+    if "precomp_alias" in fused:
+        tables = fused["precomp_alias"].precomp
+        got = alias_pick(graph, tables, cur, keys)
+        want = alias_offsets(graph, tables, cur, keys)
+        if not torch.equal(got, want):
+            fail(f"alias_pick differs from alias_offsets on "
+                 f"{int((got != want).sum())} of {cur.numel()} walkers")
+        log(f"check alias_pick [{pname}]: {cur.numel()} walkers, bitwise "
+            f"equal to alias_offsets")
     W = cur.numel()
     step = torch.zeros_like(cur)
     step[::7] = WALK_STEPS - 5  # these stop inside the epoch
@@ -1331,11 +1370,22 @@ def check_fused(graph, fused: dict, pname: str, seed: int) -> None:
         counts = {b: int(((flags >> i) & 1).sum()) for i, b in enumerate(
             ("live", "rjs", "fallback", "precomp", "stale"))}
         stopped = int((state0.alive & ~want[0].alive).sum())
-        log(f"check fused_epoch_{kind} [{pname}] ({what}): {W} walkers x "
+        same = ""
+        if hand is not None:
+            twin = hand[kind]
+            ref = megastep.fused_epoch(graph, twin.workload,
+                                       twin.sampler_ctx.params, state0,
+                                       **args)
+            if not same_epoch(got, ref):
+                fail(f"fused_epoch_{kind} [{pname}]: the generated hooks' "
+                     f"epoch differs from the hand hook rule's")
+            same = "; bitwise equal to the hand hook rule's launch"
+        log(f"check fused_epoch_{kind} [{pname}] ({what}; hook rule "
+            f"{megastep.kernel_hooks(eng.workload, p).kind}): {W} walkers x "
             f"{K4_EPOCH} steps, kernel {ms:.4f} ms (first launch), plain "
             f"{plain_ms:.4f} ms, flag bits {counts}, {stopped} walkers "
             f"stopped; {n_bad} walkers differ from the plain version, all "
-            f"at reservoir near-ties: {unexplained == 0}")
+            f"at reservoir near-ties: {unexplained == 0}{same}")
         if unexplained:
             fail(f"fused_epoch_{kind} [{pname}]: {unexplained} walkers "
                  f"differ from the plain version other than at a reservoir "
@@ -1346,20 +1396,48 @@ def check_fused(graph, fused: dict, pname: str, seed: int) -> None:
         if kind.startswith("precomp") and not counts["stale"]:
             fail(f"the stale-row check of fused_epoch_{kind} served no "
                  f"stale row")
-        if eng.workload.has_hooks and not stopped:
+        if eng.workload.should_stop is not None and not stopped:
             fail(f"fused_epoch_{kind} [{pname}]: no walker stopped, so the "
                  f"hook branch was not exercised")
 
 
+def same_state(a, b) -> bool:
+    """Whether two walker states are equal bit for bit, program state
+    included."""
+    import torch
+
+    return (all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in ("cur", "prev", "step", "alive"))
+            and all(torch.equal(x, y) for x, y in zip(a.wstate or (),
+                                                      b.wstate or ())))
+
+
+def same_epoch(a, b) -> bool:
+    """Whether two K4 epochs give the same emitted nodes, flag words and
+    end state, bit for bit."""
+    import torch
+
+    (sa, ea, fa), (sb, eb, fb) = a, b
+    return torch.equal(ea, eb) and torch.equal(fa, fb) and same_state(sa,
+                                                                      sb)
+
+
 def gen_programs() -> dict:
-    """Phase 4b's programs by label: the stripped twins ``gen:<name>`` of
-    ``COMPILER_ADAPTIVE`` and deepwalk, and the quickstart program."""
+    """Phase 4b's and 4c's programs by label: the stripped twins
+    ``gen:<name>`` of ``COMPILER_ADAPTIVE``, ``STATE_ADAPTIVE`` and
+    deepwalk, ppr_nibble stripped of its hook rule too
+    (``gen-hooks:ppr_nibble``), the quickstart program and
+    non_backtracking."""
     from repro_torch.walks import make_workload
-    from repro_torch.walks.examples import degree_damped, stripped
+    from repro_torch.walks.examples import (degree_damped, non_backtracking,
+                                            stripped)
 
     progs = {GEN + n: stripped(make_workload(n))
-             for n in COMPILER_ADAPTIVE + ("deepwalk",)}
+             for n in COMPILER_ADAPTIVE + STATE_ADAPTIVE + ("deepwalk",)}
+    progs[GEN_HOOKS + HOOKED_FUSED] = stripped(make_workload(HOOKED_FUSED),
+                                               hooks=True)
     progs[GEN + QUICKSTART] = degree_damped()
+    progs[GEN + NONBACKTRACKING] = non_backtracking()
     return progs
 
 
@@ -1555,6 +1633,72 @@ def compiler_main(args, declared: dict, gen_adaptive: dict,
     return launches, launched
 
 
+def hooks_main(args, declared: dict, hook_fused: dict,
+               user_fused: dict) -> dict:
+    """Phase 4c: ppr_nibble stripped of its hook rule fused under every
+    method (``hook_fused``: its engine per regime) must resolve "fused",
+    run K4's HOOK_GENERATED instance and give the declared program's fused
+    run (``declared``: (result, end state) per regime) bit for bit:
+    paths, telemetry and end state, mass included; the quickstart program
+    and non_backtracking (``user_fused``: label -> fused ervs engine) fused
+    must equal their staged ervs runs likewise.  Returns the launches by
+    (kernel, label)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import EngineConfig, WalkEngine
+    from repro_torch.kernels import build, megastep
+    from repro_torch.kernels.rules import HOOK_GENERATED
+
+    launches = {}
+    tele = ("frac_rjs", "frac_precomp", "frac_stale", "rjs_fallbacks",
+            "live_steps")
+    label = GEN_HOOKS + HOOKED_FUSED
+    for kind, eng in hook_fused.items():
+        method, name = eng.config.method, f"fused_epoch_{kind}"
+        hook = megastep.kernel_hooks(eng.workload, eng.sampler_ctx.params)
+        if eng.step_exec_resolved != "fused" or hook.kind != HOOK_GENERATED:
+            fail(f"{label}/{method} resolved {eng.step_exec_resolved!r} "
+                 f"with hook rule {hook.kind}, not 'fused' with "
+                 f"HOOK_GENERATED")
+        ref, ref_end = declared[HOOKED_FUSED, kind]
+        steps = ref.steps
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        res = eng.run(np.arange(eng.graph.num_nodes), num_steps=steps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = build.LAUNCHES[name]
+        log(f"main [{label}/{method}, fused]: {eng.graph.num_nodes} walkers "
+            f"x {steps} steps in {dt:.2f} s, {res.live_steps} live "
+            f"walker-steps, {n} {name} launches (HOOK_GENERATED); steps "
+            f"phase {res.seconds['steps']:.3f} s against the hand hook "
+            f"rule's {ref.seconds['steps']:.3f} s (host clock)")
+        if n <= 0:
+            fail(f"{label}/{method} fused never launched {name}")
+        if not np.array_equal(res.paths, ref.paths) or any(
+                getattr(res, f) != getattr(ref, f) for f in tele):
+            fail(f"{label}/{method}: the generated hooks' run differs from "
+                 f"the declared program's fused run")
+        end = mid_walk_state(eng, steps, steps)
+        if not same_state(end, ref_end):
+            fail(f"{label}/{method}: the end state (mass included) differs "
+                 f"from the declared program's fused run")
+        log(f"main [{label}/{method}]: paths, {', '.join(tele)} and the end "
+            f"state (mass included) equal the declared program's fused run")
+        launches[name, label] = n
+        del res, end
+    for label, eng in user_fused.items():
+        steps = (args.steps if base_program(label) == QUICKSTART
+                 else min(args.steps, NONBACKTRACKING_STEPS))
+        staged = WalkEngine(eng.graph, eng.workload, EngineConfig(
+            method=eng.config.method, step_exec="staged"))
+        n, _, res, _ = fused_main_path(eng, staged, label, steps)
+        launches["fused_epoch_reservoir", label] = n
+        del staged, res
+    return launches
+
+
 def check_small_engine() -> None:
     """Phase 3b: the whole engine on a small graph, kernels on the card
     against the plain versions on the CPU — paths and telemetry."""
@@ -1645,11 +1789,11 @@ def main_path(eng, pname: str, steps: int, need: tuple):
 
 
 def fused_main_path(fused_eng, staged_eng, pname: str, steps: int):
-    """Phase 4c: one fused run and one staged run of a method; returns
+    """Phase 4: one fused run and one staged run of a method; returns
     (the fused run's K4 launches, the staged run's launch counts, the fused
-    run's ``WalkResult``).  For a
-    program with state, the end state of both (a scheduler epoch of the
-    whole walk, as ``run()`` drives it) must match too."""
+    run's ``WalkResult``, its end state or None).  For a program with
+    hooks, the end state of both (a scheduler epoch of the whole walk, as
+    ``run()`` drives it) must match too, and is returned."""
     import numpy as np
     import torch
     from repro_torch.kernels import build
@@ -1696,6 +1840,7 @@ def fused_main_path(fused_eng, staged_eng, pname: str, steps: int):
         f"{[getattr(a, f) for f in tele]} / {[getattr(b, f) for f in tele]}")
     if not same.all() or any(getattr(a, f) != getattr(b, f) for f in tele):
         fail(f"{pname}/{method}: the fused run differs from the staged run")
+    ends = [None]
     if fused_eng.workload.has_hooks:
         ends = [mid_walk_state(e, steps, steps)
                 for e in (fused_eng, staged_eng)]
@@ -1711,7 +1856,7 @@ def fused_main_path(fused_eng, staged_eng, pname: str, steps: int):
     check_paths(fused_eng.graph, a.paths)
     log(f"main [{pname}/{method}]: every emitted step is an edge, stopped "
         f"lanes emit -1")
-    return counts["fused"][name], counts["staged"], a
+    return counts["fused"][name], counts["staged"], a, ends[0]
 
 
 def check_jump_tiles(adaptive: dict, seed: int) -> None:
@@ -2075,7 +2220,8 @@ def k4_work(eng, state0, emitted, flags, args: dict, stats=None):
     reads_h = kernel_rule(eng.workload, eng.sampler_ctx.params).weighted
     W, T = emitted.shape
     hooked = eng.workload.has_hooks
-    nbytes = W * (41.0 + 25.0 + 8.0 * T + (8.0 if hooked else 0.0))
+    nbytes = W * (41.0 + 25.0 + 8.0 * T + (state_bytes(state0) if hooked
+                                            else 0.0))
     alu = instr = 0.0
     tally = dict(pending=0, fallbacks=0, used=0.0, weighted=0.0, steps=0)
     cur, prev, step = state0.cur, state0.prev, state0.step
@@ -2208,7 +2354,8 @@ def k4_reservoir_work(eng, state0, emitted, flags):
     W, T = emitted.shape
     hooked = eng.workload.has_hooks
     weighted = kernel_rule(eng.workload, eng.sampler_ctx.params).weighted
-    nbytes = W * (41.0 + 25.0 + 8.0 * T + (8.0 if hooked else 0.0))
+    nbytes = W * (41.0 + 25.0 + 8.0 * T + (state_bytes(state0) if hooked
+                                            else 0.0))
     alu = instr = 0.0
     cur, prev = state0.cur, state0.prev
     stepped = torch.zeros(W, dtype=torch.bool, device=cur.device)
@@ -2228,6 +2375,14 @@ def k4_reservoir_work(eng, state0, emitted, flags):
     n_walkers = float(stepped.sum())
     return (nbytes, alu + n_walkers * PARITY_ALU,
             instr + n_walkers * PARITY_INSTR)
+
+
+def state_bytes(state) -> float:
+    """The bytes of one walker's program state read and written once (a
+    hooked program's leaves come in and go out of K4: PPR-Nibble's and
+    the quickstart program's mass, 8 B)."""
+    return 2.0 * sum(float(leaf[0].numel() * leaf.element_size())
+                     for leaf in state.wstate or ())
 
 
 def walker_rows(state, idx):
@@ -3170,9 +3325,10 @@ def main() -> int:
                 f"{fused[pname][kind].step_exec_resolved!r}")
 
     # phase 4b's engines: the stripped twins and the quickstart program
-    gen_adaptive = {label: WalkEngine(graph, prog, cfg)
-                    for label, prog in progs.items()
-                    if label != GEN + "deepwalk"}
+    # (and 4c's gen:visited_avoiding)
+    gen_adaptive = {GEN + n: WalkEngine(graph, progs[GEN + n], cfg)
+                    for n in COMPILER_ADAPTIVE + STATE_ADAPTIVE
+                    + (QUICKSTART,)}
     gen_fused = {kind: WalkEngine(graph, progs[GEN + "deepwalk"],
                                   EngineConfig(method=FUSED_METHODS[kind],
                                                step_exec="fused"))
@@ -3181,6 +3337,20 @@ def main() -> int:
     log(f"engines of phase 4b: {', '.join(gen_adaptive)} adaptive, "
         f"{GEN}deepwalk fused in {', '.join(COMPILER_FUSED)}: flags "
         f"{[e.compiled.flag for e in gen_adaptive.values()]}")
+    # phase 4c's fused engines: generated hooks in every regime, and the
+    # user programs under ervs
+    hook_fused = {kind: WalkEngine(graph, progs[GEN_HOOKS + HOOKED_FUSED],
+                                   EngineConfig(method=method,
+                                                step_exec="fused"))
+                  for kind, method in FUSED_METHODS.items()}
+    user_fused = {GEN + n: WalkEngine(graph, progs[GEN + n], EngineConfig(
+        method="ervs", step_exec="fused")) for n in USER_FUSED}
+    torch.cuda.synchronize()
+    log(f"engines of phase 4c: {GEN_HOOKS}{HOOKED_FUSED} fused in "
+        f"{', '.join(hook_fused)}, {', '.join(user_fused)} fused in ervs: "
+        f"step_exec resolved "
+        f"{[e.step_exec_resolved for e in hook_fused.values()]}, "
+        f"{[e.step_exec_resolved for e in user_fused.values()]}")
 
     # the table layouts the CUDA draws read (each engine builds its own in
     # its set-up), built again on a copy of the deepwalk alias engine's
@@ -3212,6 +3382,13 @@ def main() -> int:
         check_fused(graph, fused[pname], pname, seed=12)
     check_generated(graph, adaptive, gen_adaptive, fused, gen_fused,
                     seed=13)
+    # 3e. state and hooks: K4's HOOK_GENERATED instances against their
+    # plain versions and the hand hook rule's, and K4's reservoir under
+    # the user programs' generated weights and hooks
+    check_fused(graph, hook_fused, GEN_HOOKS + HOOKED_FUSED, seed=12,
+                hand=fused[HOOKED_FUSED])
+    for label, eng in user_fused.items():
+        check_fused(graph, {"reservoir": eng}, label, seed=12)
     check_small_engine()
 
     # 4. the main path, one adaptive run per program, then each fused
@@ -3220,7 +3397,7 @@ def main() -> int:
     for pname, eng in adaptive.items():
         counts, res = main_path(eng, pname, min(args.steps, MAIN_STEPS.get(
             pname, WALK_STEPS)), ADAPTIVE_NEEDS[pname])
-        if pname in COMPILER_ADAPTIVE:
+        if pname in COMPILER_ADAPTIVE + STATE_ADAPTIVE:
             declared[pname] = res  # phase 4b's twins must equal it
         del res
         launched[pname] = [name for name, n in counts.items() if n]
@@ -3245,10 +3422,13 @@ def main() -> int:
             torch.cuda.synchronize()
             log(f"engine {pname}/{method} (staged): "
                 f"{time.perf_counter() - t0:.1f} s")
-            n, staged_counts, res = fused_main_path(fused[pname][kind],
-                                                    staged, pname, steps)
+            n, staged_counts, res, end = fused_main_path(
+                fused[pname][kind], staged, pname, steps)
             if pname == "deepwalk" and kind in COMPILER_FUSED:
                 declared[kind] = res
+            if pname == HOOKED_FUSED:
+                declared[pname, kind] = (res, end)  # phase 4c's must equal
+            del end
             del res
             launches[f"fused_epoch_{kind}", pname] = n
             if kind == "precomp_alias":
@@ -3259,6 +3439,9 @@ def main() -> int:
     gen_launches, gen_launched = compiler_main(args, declared, gen_adaptive,
                                                gen_fused)
     launches.update(gen_launches)
+    # 4c. state and hooks: generated hooks against the hand hook rule's
+    # runs, user programs fused against staged
+    launches.update(hooks_main(args, declared, hook_fused, user_fused))
     del declared
 
     # 5. K1 jump across tiles, then kernel times at main-path shapes
@@ -3268,6 +3451,12 @@ def main() -> int:
         rows.update(time_fused(fused[pname], pname))
     rows.update(time_kernels(gen_adaptive, gen_launched, args.reps))
     rows.update(time_fused(gen_fused, GEN + "deepwalk"))
+    rows.update(time_fused(hook_fused, GEN_HOOKS + HOOKED_FUSED))
+    for label, eng in user_fused.items():
+        rows.update(time_fused({"reservoir": eng}, label))
+    hooked = {p for p, e in fused.items()
+              if e["reservoir"].workload.has_hooks} | {
+        GEN_HOOKS + HOOKED_FUSED} | set(user_fused)
     kernels = []
     for (name, pname), n in launches.items():
         if (name, pname) not in rows:
@@ -3275,12 +3464,12 @@ def main() -> int:
                  f"timed")
         r = rows[name, pname]
         src, replaces = SOURCES[name]
-        if name.startswith("fused_epoch") and pname in fused \
-                and fused[pname]["reservoir"].workload.has_hooks:
+        if name.startswith("fused_epoch") and pname in hooked:
             replaces = HOOK_BRANCH
         kernels.append({
             "name": f"{name}/{pname}", "route": "cuda", "source": src,
-            "rule": "generated" if pname.startswith(GEN) else "hand",
+            "rule": ("generated" if pname.startswith((GEN, GEN_HOOKS))
+                     else "hand"),
             "replaces": replaces, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

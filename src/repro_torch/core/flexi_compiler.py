@@ -188,6 +188,66 @@ def trace_weight(program: WalkProgram, params=None):
     return gm, leaves
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """One ``wstate`` leaf as a walker holds it: its dtype and per-walker
+    shape (``()`` for one value a walker, ``(k,)`` for a vector of k)."""
+
+    dtype: torch.dtype
+    shape: Tuple[int, ...]
+
+
+def leaf_specs(leaves) -> Tuple[LeafSpec, ...]:
+    """The :class:`LeafSpec` of each traced ([1]-leading) leaf."""
+    return tuple(LeafSpec(x.dtype, tuple(x.shape[1:])) for x in leaves)
+
+
+def example_tctx() -> EdgeCtx:
+    """The [1]-shaped transition ctx the hooks are traced on (the fields
+    of ``ctxutil.transition_ctx``: h 1, label and dist -1)."""
+    i = lambda v: torch.full((1,), v, dtype=torch.int64)
+    return EdgeCtx(h=torch.ones(1), label=i(-1), dist=i(-1), nbr=i(0),
+                   deg_cur=i(1), deg_prev=i(1), cur=i(0), prev=i(0),
+                   step=i(0))
+
+
+@dataclasses.dataclass(frozen=True)
+class HookTrace:
+    """A program's hooks as ATen graphs on :func:`example_tctx` and one
+    walker's initial state (None where the program has no such hook);
+    each module takes the nine fields, then the leaves."""
+
+    on_step: Optional[torch.fx.GraphModule]
+    should_stop: Optional[torch.fx.GraphModule]
+    leaves: Tuple[LeafSpec, ...]
+
+
+def trace_hooks(program: WalkProgram, params=None) -> HookTrace:
+    """``on_step`` and ``should_stop`` traced once each (``make_fx`` of the
+    functionalized hook, so that ``clone`` + ``index_put_`` trace to one
+    ``index_put``).  Raises where a hook cannot be traced."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    params = program.params() if params is None else params
+    ws = program.init_wstate_batch(torch.zeros(1, dtype=torch.int64))
+    leaves = () if ws is None else tuple(ws)
+    n = len(CTX_FIELDS)
+    ctx = example_tctx()
+    fields = [getattr(ctx, f) for f in CTX_FIELDS]
+
+    def trace(hook):
+        if hook is None:
+            return None
+
+        def fn(*args):
+            return hook(EdgeCtx(*args[:n]), params,
+                        None if ws is None else tuple(args[n:]))
+        return make_fx(torch.func.functionalize(fn))(*fields, *leaves)
+
+    return HookTrace(trace(program.on_step), trace(program.should_stop),
+                     leaf_specs(leaves))
+
+
 # ------------------------------------------------------------ interpreter
 def _op_name(target) -> str:
     packet = getattr(target, "overloadpacket", None)
@@ -716,9 +776,10 @@ class FuseReport:
                          ``label``;
     ``hooks_fusable``    it has no hooks, or its ``on_step`` keeps the
                          state's leaf shapes and dtypes and its
-                         ``should_stop`` gives one flag per walker (whether
-                         K4 has the hooks' device form is the fused plan's
-                         question, ``megastep.runs_hooks``);
+                         ``should_stop`` gives one flag per walker (K4 runs
+                         the hand hook rule a program declares, else the
+                         hooks ``rulegen`` generates, or raises naming
+                         what it cannot lower);
     ``bound_node_local`` its bound depends on node-local inputs only, so
                          the rejection regime can read a baked per-node
                          table.

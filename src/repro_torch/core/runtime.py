@@ -328,7 +328,7 @@ class WalkEngine:
             return None
         if cfg.step_exec == "auto" and self.device.type != "cuda":
             return None  # the plain fused loop is a test vehicle, not a win
-        if not self.fuse.fusable or not megastep.runs_hooks(self.workload):
+        if not self.fuse.fusable:
             return None
         kind = self.sampler.fused_kind(usable=self.compiled.usable,
                                        has_precomp=will_precomp)

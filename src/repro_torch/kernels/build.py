@@ -7,10 +7,11 @@ Libraries are named by a hash of their sources and flags, so a build is
 reused until a source changes.  Nothing is built at import: the first
 kernel launch builds, and :func:`build_all` builds ahead of time.
 
-A program without a hand-written device rule runs a generated one
-(``kernels/rulegen.py``): its header is written to ``_build/gen-<hash>/
-generated_rule.cuh`` and ``ervs.cu``, ``erjs.cu`` and ``megastep.cu`` are
-built again with ``-DREPRO_GENERATED_RULE`` against it
+A program without a hand-written device rule (or hook rule) runs a
+generated one (``kernels/rulegen.py``): its header, weight and hooks
+together, is written to ``_build/gen-<hash>/generated_rule.cuh`` and
+``ervs.cu``, ``erjs.cu`` and ``megastep.cu`` are built again with
+``-DREPRO_GENERATED_RULE`` against it
 (:data:`GENERATED_SOURCES`), into libraries whose name hashes the header
 with the sources and flags, so two programs never share one.
 
@@ -149,15 +150,15 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _R = ctypes.POINTER(RuleStruct)
 _SIGNATURES = {
     "ervs": [("repro_ervs_select",
-              [_P, _P, _P, _P, _R] + [_P] * 5 + [_I, _I, _I, _P, _P, _P])],
+              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I, _P, _P, _P])],
     "erjs": [("repro_erjs_select",
-              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I] + [_P] * 5)],
+              [_P, _P, _P, _P, _R] + [_P] * 7 + [_I, _I, _I] + [_P] * 5)],
     "its": [("repro_its_search", [_P, _P, _P, _L, _P, _P, _I, _P, _P]),
             ("repro_its_search_aligned", [_P] * 5 + [_I, _L, _P, _P])],
     "alias": [("repro_alias_pick", [_P, _P, _P, _P, _I, _P, _P]),
               ("repro_alias_pick_aligned", [_P] * 6 + [_I, _L, _P, _P])],
     "megastep": [("repro_fused_epoch",
-                  [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 9
+                  [_P, _P, _P, _P, _R, _I, _F, _F, _I] + [_P] * 10
                   + [_L] + [_P] * 3 + [_I, _I, _I, _I, _I, _L] + [_P] * 8)],
     "ervs_block": [("repro_ervs_block_plan",
                     [_P, _P, _I, _L] + [_P] * 8),

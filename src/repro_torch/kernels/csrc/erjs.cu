@@ -49,7 +49,8 @@ __global__ void erjs_round0_kernel(Graph g, Rule rule,
                                    int64_t* __restrict__ out,
                                    bool* __restrict__ fallback,
                                    int32_t* __restrict__ used,
-                                   int32_t* __restrict__ todo) {
+                                   int32_t* __restrict__ todo,
+                                   GenLeaves leaves) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if ((i & ~31) >= n) return;  // whole warps exit together
   // a lane past the end stays in its warp's vote with no walker
@@ -57,9 +58,10 @@ __global__ void erjs_round0_kernel(Graph g, Rule rule,
   bool feasible = false, done = true;
   ErjsResult r{-1, false, 0};
   if (on) {
-    const WalkerCtx wc = walker_ctx(
+    WalkerCtx wc = walker_ctx(
         g, rule, cur[i], prev[i], step[i],
         ring ? ring + static_cast<int64_t>(i) * rule.window : nullptr);
+    load_gen(wc, leaves, i);
     const float b = bound[i];
     feasible = wc.deg_cur > 0 && b > 0.0f;
     r = erjs_round0(g, rule, wc, feasible ? g.indptr[wc.cur] : 0,
@@ -100,7 +102,8 @@ __global__ void erjs_rounds_kernel(Graph g, Rule rule,
                                    const int32_t* __restrict__ todo,
                                    int64_t* __restrict__ out,
                                    bool* __restrict__ fallback,
-                                   int32_t* __restrict__ used) {
+                                   int32_t* __restrict__ used,
+                                   GenLeaves leaves) {
   const int count = todo[0];
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * blockDim.x / 32;
@@ -118,6 +121,7 @@ __global__ void erjs_rounds_kernel(Graph g, Rule rule,
       wc = walker_ctx(
           g, rule, cur[i], prev[i], step[i],
           ring ? ring + static_cast<int64_t>(i) * rule.window : nullptr);
+      load_gen(wc, leaves, i);
       s0 = static_cast<uint32_t>(keys[2 * i]);
       s1 = static_cast<uint32_t>(keys[2 * i + 1]);
       b = bound[i];
@@ -160,12 +164,14 @@ extern "C" int repro_erjs_select(const int32_t* indptr, const int32_t* indices,
                                  const float* h, const int32_t* labels,
                                  const repro::Rule* rule_in, const int64_t* cur,
                                  const int64_t* prev, const int64_t* step,
-                                 const int32_t* ring, const int64_t* keys,
+                                 const int32_t* ring, void* const* leaves,
+                                 const int64_t* keys,
                                  const float* bound, int n, int trials,
                                  int rounds, int64_t* out, bool* fallback,
                                  int32_t* used, int32_t* todo, void* stream) {
   const repro::Graph g{indptr, indices, h, labels};
   const repro::Rule rule = *rule_in;
+  const repro::GenLeaves L = repro::gen_leaves(leaves);
   auto s = static_cast<cudaStream_t>(stream);
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
@@ -173,7 +179,7 @@ extern "C" int repro_erjs_select(const int32_t* indptr, const int32_t* indices,
   if (clear != cudaSuccess) return static_cast<int>(clear);
   repro::erjs_round0_kernel<<<blocks, threads, 0, s>>>(
       g, rule, cur, prev, step, ring, keys, bound, n, trials, rounds, out,
-      fallback, used, todo);
+      fallback, used, todo, L);
   if (rounds > 1) {  // a grid of the blocks that fit on the card at once
     int dev = 0;
     const cudaError_t got = cudaGetDevice(&dev);
@@ -182,7 +188,7 @@ extern "C" int repro_erjs_select(const int32_t* indptr, const int32_t* indices,
     repro::erjs_rounds_kernel<<<blocks < grid ? blocks : grid, threads, 0,
                                 s>>>(
         g, rule, cur, prev, step, ring, keys, bound, trials, rounds, todo,
-        out, fallback, used);
+        out, fallback, used, L);
   }
   return static_cast<int>(cudaGetLastError());
 }

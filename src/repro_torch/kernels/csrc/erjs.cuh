@@ -86,6 +86,7 @@ __device__ __forceinline__ WalkerCtx shfl_ctx(const WalkerCtx& wc, int src) {
   c.deg_prev = __shfl_sync(kFullWarp, wc.deg_prev, src);
   c.ring = reinterpret_cast<const int32_t*>(__shfl_sync(
       kFullWarp, reinterpret_cast<unsigned long long>(wc.ring), src));
+  c.gen = gen_state_shfl(wc.gen, src);
   return c;
 }
 

@@ -38,14 +38,15 @@ __global__ void __launch_bounds__(256, 6)
 ervs_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
             const int64_t* __restrict__ prev, const int64_t* __restrict__ step,
             const int32_t* __restrict__ ring, const int64_t* __restrict__ keys,
-            int n, int tile, int64_t* __restrict__ out) {
+            int n, int tile, int64_t* __restrict__ out, GenLeaves leaves) {
   const int walker = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (walker >= n) return;  // whole warps exit together
   const ScanTile st = scan_tile(tile, lane);
-  const WalkerCtx wc = walker_ctx(
+  WalkerCtx wc = walker_ctx(
       g, rule, cur[walker], prev[walker], step[walker],
       ring ? ring + static_cast<int64_t>(walker) * rule.window : nullptr);
+  load_gen(wc, leaves, walker);
   const int64_t nxt = ervs_warp_select(
       g, rule, wc, static_cast<uint32_t>(keys[2 * walker]),
       static_cast<uint32_t>(keys[2 * walker + 1]), st, lane);
@@ -76,13 +77,15 @@ ervs_jump_warp_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
                       const int64_t* __restrict__ step,
                       const int32_t* __restrict__ ring,
                       const int64_t* __restrict__ keys, int n, int tile,
-                      int64_t* __restrict__ out, int32_t* __restrict__ todo) {
+                      int64_t* __restrict__ out, int32_t* __restrict__ todo,
+                      GenLeaves leaves) {
   __shared__ uint2 tkeys[kJumpWarps][32];
   const int64_t w = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
                      threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (w >= n) return;  // whole warps exit together
-  const JumpWalker jw = jump_walker(g, rule, cur, prev, step, ring, w);
+  const JumpWalker jw =
+      jump_walker(g, rule, cur, prev, step, ring, leaves, w);
   if (jump_by_block(jw.ctx.deg_cur, tile)) {
     if (lane == 0) todo[2 + atomicAdd(todo, 1)] = static_cast<int32_t>(w);
     return;
@@ -100,7 +103,8 @@ ervs_jump_block_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
                        const int64_t* __restrict__ step,
                        const int32_t* __restrict__ ring,
                        const int64_t* __restrict__ keys, int tile,
-                       int64_t* __restrict__ out, int32_t* __restrict__ todo) {
+                       int64_t* __restrict__ out, int32_t* __restrict__ todo,
+                       GenLeaves leaves) {
   __shared__ float red_key[kJumpWarps];
   __shared__ int32_t red_idx[kJumpWarps], red_nbr[kJumpWarps];
   __shared__ int32_t next;
@@ -116,7 +120,7 @@ ervs_jump_block_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
     if (k >= count) return;
     const int64_t w = todo[2 + k];
     const int64_t nxt = ervs_jump_select(
-        g, rule, jump_walker(g, rule, cur, prev, step, ring, w),
+        g, rule, jump_walker(g, rule, cur, prev, step, ring, leaves, w),
         static_cast<uint32_t>(keys[2 * w]),
         static_cast<uint32_t>(keys[2 * w + 1]), tile, warp, kJumpWarps, lane,
         tkeys[warp], red_key, red_idx, red_nbr);
@@ -144,28 +148,31 @@ int jump_block_grid() {
 }  // namespace repro
 
 // The jump instance's `todo` is n + 2 int32 of scratch (see above); the
-// plain instance takes none (null).
+// plain instance takes none (null).  `leaves`: kMaxGenLeaves pointers to
+// the wstate leaves a generated rule reads (null for a hand rule).
 extern "C" int repro_ervs_select(const int32_t* indptr, const int32_t* indices,
                                  const float* h, const int32_t* labels,
                                  const repro::Rule* rule_in, const int64_t* cur,
                                  const int64_t* prev, const int64_t* step,
-                                 const int32_t* ring, const int64_t* keys,
-                                 int n, int tile, int jump, int64_t* out,
-                                 int32_t* todo, void* stream) {
+                                 const int32_t* ring, void* const* leaves,
+                                 const int64_t* keys, int n, int tile,
+                                 int jump, int64_t* out, int32_t* todo,
+                                 void* stream) {
   const repro::Graph g{indptr, indices, h, labels};
+  const repro::GenLeaves L = repro::gen_leaves(leaves);
   const repro::Rule rule = *rule_in;
   const int threads = 256;  // 8 walkers per block
   const int blocks = static_cast<int>((static_cast<int64_t>(n) * 32 + threads - 1) / threads);
   auto s = static_cast<cudaStream_t>(stream);
   if (!jump) {
-    repro::ervs_kernel<<<blocks, threads, 0, s>>>(g, rule, cur, prev, step, ring, keys, n, tile, out);
+    repro::ervs_kernel<<<blocks, threads, 0, s>>>(g, rule, cur, prev, step, ring, keys, n, tile, out, L);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err = cudaMemsetAsync(todo, 0, 2 * sizeof(int32_t), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  repro::ervs_jump_warp_kernel<<<blocks, threads, 0, s>>>(g, rule, cur, prev, step, ring, keys, n, tile, out, todo);
+  repro::ervs_jump_warp_kernel<<<blocks, threads, 0, s>>>(g, rule, cur, prev, step, ring, keys, n, tile, out, todo, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  repro::ervs_jump_block_kernel<<<repro::jump_block_grid(), repro::kJumpThreads, 0, s>>>(g, rule, cur, prev, step, ring, keys, tile, out, todo);
+  repro::ervs_jump_block_kernel<<<repro::jump_block_grid(), repro::kJumpThreads, 0, s>>>(g, rule, cur, prev, step, ring, keys, tile, out, todo, L);
   return static_cast<int>(cudaGetLastError());
 }

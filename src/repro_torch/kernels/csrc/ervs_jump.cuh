@@ -54,7 +54,7 @@ struct JumpWalker {
 __device__ __forceinline__ JumpWalker jump_walker(
     const Graph& g, const Rule& rule, const int64_t* __restrict__ cur,
     const int64_t* __restrict__ prev, const int64_t* __restrict__ step,
-    const int32_t* __restrict__ ring, int64_t w) {
+    const int32_t* __restrict__ ring, const GenLeaves& leaves, int64_t w) {
   const int64_t c = cur[w], p = prev[w];
   const bool prow = p >= 0 && (reads_dist(rule) || reads_deg_prev(rule));
   const int32_t s0 = g.indptr[c], s1 = g.indptr[c + 1];
@@ -63,6 +63,7 @@ __device__ __forceinline__ JumpWalker jump_walker(
   jw.ctx = WalkerCtx{c, p, step[w], s1 - s0,
                      reads_deg_prev(rule) ? p1 - p0 : 0,
                      ring ? ring + w * rule.window : nullptr};
+  load_gen(jw.ctx, leaves, w);
   jw.start = s0;
   jw.p_begin = p0;
   jw.p_end = p1;

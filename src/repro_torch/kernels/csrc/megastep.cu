@@ -12,11 +12,19 @@
 // outside) beside the emitted node.
 //
 // Hooks (one instance per hook rule, HOOK): each walker loads its program
-// state into registers at epoch start (PPR-Nibble: one float32 mass),
-// builds the transition ctx the staged step builds (nbr = the node moved
-// to; cur, prev, step and deg_cur = d(cur) before the move), commits
-// on_step only when the lane stepped, evaluates should_stop on the new
-// state, folds a stop into alive, and writes the state back at epoch end.
+// state into registers at epoch start (PPR-Nibble: one float32 mass;
+// HOOK_GENERATED: its GenState, every scalar leaf by value and a pointer
+// to its row of each vector leaf), builds the transition ctx the staged
+// step builds (nbr = the node moved to; cur, prev, step and deg_cur =
+// d(cur) before the move), commits on_step only when the lane stepped,
+// evaluates should_stop on the new state, folds a stop into alive, and
+// writes the state back at epoch end.  A generated weight reads the same
+// GenState in the reservoir scan, the rejection trials and the stale-row
+// scans.  The wrapper hands HOOK_GENERATED a copy of the input leaves
+// (out.leaves): a vector leaf's row is read and updated there in place,
+// its slots written by one lane of the warp that serves the walker, and
+// the warp meets at __syncwarp() before any lane reads it again
+// (kGenVectorState; scalar leaves need no memory).
 // One instance per (regime, hook rule); the regimes (FUSED_KINDS):
 //   reservoir      ervs_warp_select (ervs.cuh), the code K1 runs;
 //   rejection      erjs_trials (erjs.cuh, K2's code) against the baked
@@ -90,6 +98,9 @@ struct EpochOut {
   int64_t* step;
   bool* alive;
   float* mass;
+  // the wstate leaves a generated rule reads (HOOK_GENERATED: all of them,
+  // a copy of the input that the kernel updates in place)
+  GenLeaves leaves;
 };
 
 // The reservoir: a warp per walker.  Held to 6 blocks of 256 threads an
@@ -110,7 +121,7 @@ fused_epoch_kernel(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
   if (!(alive && step < num_steps)) {
     // a lane that cannot step this epoch emits -1 and flag 0 at every step
     // and keeps its state, as the loop below would (most of PPR-Nibble's
-    // lanes, stopped early)
+    // lanes, stopped early; out.leaves hold it already)
     for (int t = lane; t < epoch_len; t += 32) {
       out.emitted[w * epoch_len + t] = -1;
       out.flags[w * epoch_len + t] = 0;
@@ -124,10 +135,12 @@ fused_epoch_kernel(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
     }
     return;
   }
+  GenState gs = gen_state<HOOK == HOOK_GENERATED>(out.leaves, w);
   const uint32_t s0 = static_cast<uint32_t>(in.rng[2 * w]);
   const uint32_t s1 = static_cast<uint32_t>(in.rng[2 * w + 1]);
   for (int t = 0; t < epoch_len; ++t) {
-    const WalkerCtx wc = walker_ctx(g, rule, cur, prev, step, nullptr);
+    WalkerCtx wc = walker_ctx(g, rule, cur, prev, step, nullptr);
+    wc.gen = gs;
     const int deg = wc.deg_cur;
     const bool wants = alive && step < num_steps;
     const bool live = wants && deg > 0;
@@ -150,6 +163,17 @@ fused_epoch_kernel(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
       mass = __fmul_rn(mass, hooks.decay);  // on_step
       stop = mass < __fmul_rn(hooks.eps, __int2float_rn(deg));  // should_stop
     }
+    if constexpr (HOOK == HOOK_GENERATED) {
+      if (stepped) {  // warp-uniform: every lane holds the walker
+        const HookCtx hc{cur, prev, step, nxt, deg,
+                         kGenHooksReadDegPrev ? degree(g, prev) : 0};
+        generated_on_step(hc, gs, lane == 0);
+        stop = generated_should_stop(hc, gs);
+      }
+      // lane 0's slot writes, before the next scan reads (scalar leaves
+      // live in every lane's registers)
+      if (kGenVectorState) __syncwarp();
+    }
     // a lane that wanted to step but could not has dead-ended; a lane
     // whose program said stop is equally finished
     alive = alive && !(wants && !stepped) && !stop;
@@ -165,6 +189,7 @@ fused_epoch_kernel(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
     out.step[w] = step;
     out.alive[w] = alive;
     if (HOOK == HOOK_PPR_NIBBLE) out.mass[w] = mass;
+    if (HOOK == HOOK_GENERATED) gen_state_store(out.leaves, w, gs);
   }
 }
 
@@ -209,6 +234,7 @@ fused_epoch_lanes(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
   int64_t cur = -1, prev = -1, step = 0;
   bool alive = false;
   float mass = 0.0f;
+  GenState gs{};
   uint32_t s0 = 0, s1 = 0;
   if (on) {
     cur = in.cur[w];
@@ -216,6 +242,7 @@ fused_epoch_lanes(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
     step = in.step[w];
     alive = in.alive[w];
     if (HOOK == HOOK_PPR_NIBBLE) mass = in.mass[w];
+    gs = gen_state<HOOK == HOOK_GENERATED>(out.leaves, w);
     s0 = static_cast<uint32_t>(in.rng[2 * w]);
     s1 = static_cast<uint32_t>(in.rng[2 * w + 1]);
   }
@@ -237,6 +264,7 @@ fused_epoch_lanes(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
       const bool wants = alive && step < num_steps;
       WalkerCtx wc{cur, prev, step, 0, 0, nullptr};
       if (wants) wc = walker_ctx(g, rule, cur, prev, step, nullptr);
+      wc.gen = gs;
       const int deg = wc.deg_cur;
       const bool live = wants && deg > 0;
       int64_t nxt = -1;
@@ -304,6 +332,16 @@ fused_epoch_lanes(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
         mass = __fmul_rn(mass, hooks.decay);  // on_step
         stop = mass < __fmul_rn(hooks.eps, __int2float_rn(deg));  // should_stop
       }
+      if constexpr (HOOK == HOOK_GENERATED) {
+        if (stepped) {  // the lane's own walker: it writes its slots
+          const HookCtx hc{cur, prev, step, nxt, deg,
+                           kGenHooksReadDegPrev ? degree(g, prev) : 0};
+          generated_on_step(hc, gs, true);
+          stop = generated_should_stop(hc, gs);
+        }
+        // the slot writes, before a warp scan reads them
+        if (kGenVectorState) __syncwarp();
+      }
       // a lane that wanted to step but could not has dead-ended; a lane
       // whose program said stop is equally finished
       alive = alive && !(wants && !stepped) && !stop;
@@ -320,6 +358,7 @@ fused_epoch_lanes(Graph g, Rule rule, Hooks hooks, EpochIn in, EpochOut out,
     out.step[w] = step;
     out.alive[w] = alive;
     if (HOOK == HOOK_PPR_NIBBLE) out.mass[w] = mass;
+    if (HOOK == HOOK_GENERATED) gen_state_store(out.leaves, w, gs);
   }
 }
 
@@ -359,6 +398,13 @@ int launch(int hook, cudaStream_t s, const Graph& g, const Rule& rule,
       launch_one<KIND, HOOK_PPR_NIBBLE>(n, s, g, rule, hooks, in, out, tile,
                                         trials, rounds, epoch_len, num_steps);
       break;
+#ifdef REPRO_GENERATED_RULE
+    case HOOK_GENERATED:  // the instances of a header with generated hooks
+      if (!kGenHooks) return static_cast<int>(cudaErrorInvalidValue);
+      launch_one<KIND, HOOK_GENERATED>(n, s, g, rule, hooks, in, out, tile,
+                                       trials, rounds, epoch_len, num_steps);
+      break;
+#endif
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -372,7 +418,8 @@ extern "C" int repro_fused_epoch(
     const int32_t* labels, const repro::Rule* rule_in, int hook, float decay,
     float eps, int kind, const int64_t* cur, const int64_t* prev,
     const int64_t* step, const bool* alive, const int64_t* rng,
-    const float* mass, const float* bmax, const float* cdf, const float* fence,
+    const float* mass, void* const* leaves, const float* bmax,
+    const float* cdf, const float* fence,
     int64_t n_edges, const float* total, const int2* pair, const bool* invalid,
     int n,
     int tile, int trials, int rounds, int epoch_len, int64_t num_steps,
@@ -383,7 +430,8 @@ extern "C" int repro_fused_epoch(
   const repro::Hooks hooks{hook, decay, eps};
   const repro::EpochIn in{cur, prev, step, alive, rng, bmax, cdf, fence,
                           n_edges, total, pair, invalid, mass};
-  const repro::EpochOut out{emitted, flags, ocur, oprev, ostep, oalive, omass};
+  const repro::EpochOut out{emitted, flags, ocur, oprev, ostep, oalive, omass,
+                            repro::gen_leaves(leaves)};
   auto s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case repro::kReservoir:

@@ -14,7 +14,12 @@
 //                             * max(d(v), d(v')) * h, d clamped at 1
 //   visited-avoiding      w = nbr in the walker's ring ? 0 : Node2Vec's w
 // and PPR-Nibble's hooks (K4): mass *= 1-alpha on a step, stop when
-// mass < eps * d(v).
+// mass < eps * d(v).  HOOK_GENERATED is any other program's hooks, generated
+// into the same header as generated_on_step() / generated_should_stop().
+// A generated rule reads the walker's wstate leaves through GenState (one
+// walker's leaves: a scalar by value, a vector of at most kMaxGenWidth as a
+// pointer to the walker's row of its [W, width] array), loaded from the
+// leaves' arrays (GenLeaves, one pointer a leaf) by gen_state().
 #pragma once
 #include <cstdint>
 
@@ -33,6 +38,12 @@ constexpr int kMaxSchema = 8;
 
 constexpr int HOOK_NONE = 0;
 constexpr int HOOK_PPR_NIBBLE = 1;
+constexpr int HOOK_GENERATED = 2;
+
+// The most wstate leaves, and values of one a walker, a generated rule
+// reads (repro_torch.kernels.rules.MAX_GEN_LEAVES / MAX_GEN_WIDTH).
+constexpr int kMaxGenLeaves = 8;
+constexpr int kMaxGenWidth = 64;
 
 struct Graph {
   const int32_t* indptr;   // [V+1]
@@ -54,11 +65,18 @@ struct Rule {
   int window;  // visited-avoiding ring length
 };
 
-// The walker's side of every candidate edge's context.
-struct WalkerCtx {
-  int64_t cur, prev, step;
+// The arrays of a program's wstate leaves, leaf i at p[i] ([W] or
+// [W, width], its dtype), null where a kernel is not given it.
+struct GenLeaves {
+  void* p[kMaxGenLeaves];
+};
+
+// The transition a hook sees (the staged step's transition ctx): the node
+// moved to, the walker before the move, and their degrees; h is 1, label
+// and dist -1.
+struct HookCtx {
+  int64_t cur, prev, step, nbr;
   int deg_cur, deg_prev;
-  const int32_t* ring;  // [window] of the walker (visited-avoiding), or null
 };
 
 #ifdef REPRO_GENERATED_RULE
@@ -71,7 +89,48 @@ constexpr bool kGenReadsLabel = false;
 constexpr bool kGenReadsNbr = false;
 constexpr bool kGenReadsDist = false;
 constexpr bool kGenReadsDegPrev = false;
+constexpr bool kGenHooks = false;
+constexpr bool kGenHooksReadDegPrev = false;
+constexpr bool kGenVectorState = false;  // a vector leaf: rows in memory
+struct GenState {};
+template <bool kAll>
+__device__ __forceinline__ GenState gen_state(const GenLeaves&, int64_t) {
+  return GenState{};
+}
+__device__ __forceinline__ void gen_state_store(const GenLeaves&, int64_t,
+                                                const GenState&) {}
+__device__ __forceinline__ GenState gen_state_shfl(const GenState& s, int) {
+  return s;
+}
+__device__ __forceinline__ void generated_on_step(const HookCtx&, GenState&,
+                                                  bool) {}
+__device__ __forceinline__ bool generated_should_stop(const HookCtx&,
+                                                      const GenState&) {
+  return false;
+}
 #endif
+
+// The walker's side of every candidate edge's context.
+struct WalkerCtx {
+  int64_t cur, prev, step;
+  int deg_cur, deg_prev;
+  const int32_t* ring;  // [window] of the walker (visited-avoiding), or null
+  GenState gen;         // its wstate leaves (a generated rule), or empty
+};
+
+// The GenLeaves of a host array of kMaxGenLeaves pointers (null: none).
+inline GenLeaves gen_leaves(void* const* p) {
+  GenLeaves L{};
+  for (int i = 0; p && i < kMaxGenLeaves; ++i) L.p[i] = p[i];
+  return L;
+}
+
+// The leaves of walker w that a generated weight reads (none for a hand
+// rule).
+__device__ __forceinline__ void load_gen(WalkerCtx& wc, const GenLeaves& L,
+                                         int64_t w) {
+  wc.gen = gen_state<false>(L, w);
+}
 
 // Whether the rule reads dist(v', u), and so v''s row.
 __device__ __forceinline__ bool reads_dist(const Rule& rule) {

@@ -28,7 +28,8 @@ def erjs_select(graph, program, params, cur, prev, step, keys, bound, *,
     rule = kernel_rule(program, params)
     n = cur.shape[0]
     dev = cur.device
-    ring = walker_inputs(graph, rule, cur, prev, step, keys, wstate, dev)
+    ring, leaves = walker_inputs(graph, rule, cur, prev, step, keys, wstate,
+                                 dev)
     build.require(bound, "bound", torch.float32, (n,), dev)
     if trials < 1 or rounds < 1:
         raise ValueError(f"trials and rounds must be positive, got "
@@ -46,7 +47,7 @@ def erjs_select(graph, program, params, cur, prev, step, keys, bound, *,
     err = lib.repro_erjs_select(
         graph.indptr.data_ptr(), graph.indices.data_ptr(),
         graph.h.data_ptr(), graph.labels.data_ptr(), ctypes.byref(rs),
-        cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring,
+        cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring, leaves,
         keys.data_ptr(), bound.data_ptr(), n, trials, rounds, out.data_ptr(),
         fallback.data_ptr(), used.data_ptr(), todo.data_ptr(), stream)
     build.check(err, "erjs_select")

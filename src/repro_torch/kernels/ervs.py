@@ -5,7 +5,8 @@ keys (``jump=False``) or the lane-strided A-ExpJ variant (``jump=True``).
 On CPU tensors it runs the plain versions ``core.ervs.ervs_step`` /
 ``ervs_jump_step``; on CUDA tensors it launches the kernel (building it
 on first use: a program without a hand-written rule gets its own instance
-of the kernel, built from its generated rule) or raises.
+of the kernel, built from its generated rule, which may read the walkers'
+``wstate`` leaves) or raises.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from repro_torch.core.ervs import ervs_jump_step, ervs_step
 from repro_torch.kernels import build, rulegen
 from repro_torch.kernels.rules import (DEEPWALK, METAPATH, NODE2VEC,
                                        PPR_NIBBLE, SECOND_ORDER_PR, VISITED,
-                                       KernelRule)
+                                       KernelRule, leaf_pointers)
 
 #: rule ids ``csrc/weights.cuh`` implements
 DEVICE_RULES = (DEEPWALK, NODE2VEC, METAPATH, SECOND_ORDER_PR, VISITED,
@@ -39,22 +40,44 @@ def kernel_rule(program, params) -> KernelRule:
     return rule
 
 
+def require_leaves(rule, wstate, idx, n: int, dev) -> list:
+    """Check the leaves ``idx`` of ``wstate`` (n walkers) against the
+    generated rule's leaf specs; the leaves, None at the others."""
+    if not idx:
+        return [None] * len(rule.leaves)
+    if wstate is None or len(wstate) != len(rule.leaves):
+        raise ValueError(f"the generated rule reads the walkers' wstate "
+                         f"leaves {list(idx)}: pass wstate, "
+                         f"{len(rule.leaves)} leaves")
+    out = [None] * len(rule.leaves)
+    for i in idx:
+        spec = rule.leaves[i]
+        build.require(wstate[i], f"wstate[{i}]", spec.dtype,
+                      (n,) + tuple(spec.shape), dev)
+        out[i] = wstate[i]
+    return out
+
+
 def walker_inputs(graph, rule: KernelRule, cur, prev, step, keys, wstate,
                   dev):
     """Check what a per-walker kernel reads beside the graph, and return
-    the pointer of the walkers' ring rows (visited-avoiding; else None)."""
+    (the pointer of the walkers' ring rows, visited-avoiding's, else None;
+    the kernels' array of the leaves a generated rule reads, else None)."""
     n = cur.shape[0]
     build.require_graph(graph, dev)
     for name, t in (("cur", cur), ("prev", prev), ("step", step)):
         build.require(t, name, torch.int64, (n,), dev)
     build.require(keys, "keys", torch.int64, (n, 2), dev)
+    if rule.reads_leaves:
+        return None, leaf_pointers(require_leaves(
+            rule, wstate, rule.reads_leaves, n, dev))
     if rule.program != VISITED:
-        return None
+        return None, None
     if wstate is None:
         raise ValueError("the visited-avoiding rule reads the walkers' "
                          "rings: pass wstate")
     build.require(wstate[0], "wstate[0]", torch.int32, (n, rule.window), dev)
-    return wstate[0].data_ptr()
+    return wstate[0].data_ptr(), None
 
 
 def ervs_select(graph, program, params, cur, prev, step, keys, *,
@@ -70,7 +93,8 @@ def ervs_select(graph, program, params, cur, prev, step, keys, *,
     rule = kernel_rule(program, params)
     n = cur.shape[0]
     dev = cur.device
-    ring = walker_inputs(graph, rule, cur, prev, step, keys, wstate, dev)
+    ring, leaves = walker_inputs(graph, rule, cur, prev, step, keys, wstate,
+                                 dev)
     if tile < 1:
         raise ValueError(f"tile must be positive, got {tile}")
     out = torch.empty(n, dtype=torch.int64, device=dev)
@@ -85,7 +109,7 @@ def ervs_select(graph, program, params, cur, prev, step, keys, *,
     err = lib.repro_ervs_select(
         graph.indptr.data_ptr(), graph.indices.data_ptr(),
         graph.h.data_ptr(), graph.labels.data_ptr(), ctypes.byref(rs),
-        cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring,
+        cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring, leaves,
         keys.data_ptr(), n, tile, int(jump), out.data_ptr(), todo, stream)
     build.check(err, "ervs_select")
     build.LAUNCHES["ervs_jump_select" if jump else "ervs_select"] += 1

@@ -25,8 +25,10 @@ A program with ``on_step`` / ``should_stop`` hooks runs them inside the
 epoch as the staged step does (the reference kernel's hook branch): on
 the transition ctx, committed on the lanes that moved, a stop folded into
 ``alive``; the program state comes in and goes out in
-``WalkerState.wstate``.  The kernel implements one hook rule,
-PPR-Nibble's; :func:`runs_hooks` says whether a program's hooks are it.
+``WalkerState.wstate``.  The kernel runs the hand hook rule a program
+declares (PPR-Nibble's), else the hooks ``rulegen`` generates
+(``HOOK_GENERATED``, every leaf in and out); :func:`kernel_hooks` raises,
+naming the op, for hooks it cannot lower.
 
 On CPU tensors :func:`fused_epoch` runs :func:`fused_epoch_plain`, a loop
 over the steps that calls the plain selectors; on CUDA tensors it launches
@@ -46,29 +48,41 @@ from repro_torch.core.ervs import ervs_step
 from repro_torch.core.precomp import (PrecompTables, alias_offsets,
                                       its_offsets, offset_nodes)
 from repro_torch.core.types import StepStats, WalkerState, wstate_rows
-from repro_torch.kernels import build
-from repro_torch.kernels.ervs import kernel_rule
+from repro_torch.kernels import build, rulegen
+from repro_torch.kernels.ervs import kernel_rule, require_leaves
 from repro_torch.kernels.its import require_cdf
 from repro_torch.kernels.prng import fold_in
-from repro_torch.kernels.rules import HOOK_NONE, HOOK_PPR_NIBBLE, HookRule
+from repro_torch.kernels.rules import (HOOK_GENERATED, HOOK_NONE,
+                                       HOOK_PPR_NIBBLE, HookRule,
+                                       leaf_pointers)
 
 #: fused regimes, in the order of the kernel's instances
 FUSED_KINDS = ("reservoir", "rejection", "precomp_its", "precomp_alias")
 
 
+#: hook rules the kernel has instances of
+DEVICE_HOOKS = (HOOK_NONE, HOOK_PPR_NIBBLE, HOOK_GENERATED)
+
+
 def kernel_hooks(program, params) -> HookRule:
-    """The device form of the program's hooks (HOOK_NONE without hooks)."""
+    """The device form of the program's hooks: HOOK_NONE without hooks,
+    the hand hook rule it declares, else its generated hooks
+    (``rulegen.generated_hooks``, which raises naming what it cannot
+    lower)."""
     if not program.has_hooks:
         return HookRule(HOOK_NONE)
-    return program.hook_rule(params)
+    if program.hook_rule is not None:
+        return program.hook_rule(params)
+    return rulegen.generated_hooks(program, params)
 
 
 def runs_hooks(program) -> bool:
-    """Whether the kernel implements the program's hooks: none, or a
-    declared device form the kernel has an instance for."""
-    return not program.has_hooks or (
-        program.hook_rule is not None
-        and kernel_hooks(program, program.params()).kind == HOOK_PPR_NIBBLE)
+    """Whether the kernel runs the program's hooks: none, a declared hook
+    rule it has an instance of, or hooks ``rulegen`` lowers."""
+    try:
+        return kernel_hooks(program, program.params()).kind in DEVICE_HOOKS
+    except ValueError:
+        return False
 
 
 def _check(program, kind, bmax, tables) -> None:
@@ -78,9 +92,10 @@ def _check(program, kind, bmax, tables) -> None:
     if not rep.fusable:
         raise ValueError(f"program {program.name!r} cannot run fused: "
                          f"{'; '.join(rep.reasons)}")
-    if not runs_hooks(program):
+    if program.hook_rule is not None and kernel_hooks(
+            program, program.params()).kind not in DEVICE_HOOKS:
         raise ValueError(f"program {program.name!r}: the fused epoch does "
-                         f"not implement its hook rule")
+                         f"not implement its declared hook rule")
     if kind == "rejection" and bmax is None:
         raise ValueError("kind='rejection' needs the baked bound table bmax")
     if kind.startswith("precomp") and tables is None:
@@ -118,8 +133,20 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
     build.require(state.rng, "state.rng", torch.int64, (W, 2), dev)
     mass = None
     if hooks.kind == HOOK_PPR_NIBBLE:
+        if rule.reads_leaves:
+            raise ValueError(f"program {program.name!r}: the PPR-Nibble hook "
+                             f"rule updates no state a generated weight "
+                             f"reads")
         mass = state.wstate[0]
         build.require(mass, "wstate[0] (mass)", torch.float32, (W,), dev)
+    # the leaves a generated weight reads, or all of them (copied: the
+    # kernel updates them in place) for generated hooks
+    if hooks.kind == HOOK_GENERATED:
+        leaves = [leaf.clone() for leaf in require_leaves(
+            hooks, state.wstate, range(len(hooks.leaves)), W, dev)]
+    else:
+        leaves = require_leaves(rule, state.wstate, rule.reads_leaves, W,
+                                dev) if rule.reads_leaves else []
     if tile < 1 or T < 1 or rjs_trials < 1 or rjs_max_rounds < 1:
         raise ValueError(f"tile, epoch_len, rjs_trials and rjs_max_rounds "
                          f"must be positive, got {tile}, {T}, {rjs_trials}, "
@@ -146,14 +173,16 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
     emitted = torch.empty((W, T), dtype=torch.int32, device=dev)
     flags = torch.empty((W, T), dtype=torch.int32, device=dev)
     out_mass = None if mass is None else torch.empty_like(mass)
+    wstate = (out_mass,) if mass is not None else (
+        tuple(leaves) if hooks.kind == HOOK_GENERATED else state.wstate)
     out = WalkerState(cur=torch.empty_like(state.cur),
                       prev=torch.empty_like(state.prev),
                       step=torch.empty_like(state.step),
                       alive=torch.empty_like(state.alive), rng=state.rng,
-                      wstate=state.wstate if mass is None else (out_mass,))
+                      wstate=wstate)
     if W == 0:
         return out, emitted, flags
-    lib = build.library("megastep", rule.header)
+    lib = build.library("megastep", rule.header or hooks.header)
     rs = rule.as_struct()
     ptr_of = lambda t: None if t is None else t.data_ptr()
     err = lib.repro_fused_epoch(
@@ -162,9 +191,10 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
         hooks.kind, hooks.decay, hooks.eps, FUSED_KINDS.index(kind),
         state.cur.data_ptr(), state.prev.data_ptr(), state.step.data_ptr(),
         state.alive.data_ptr(), state.rng.data_ptr(), ptr_of(mass),
-        ptr["bmax"], ptr["cdf"], ptr["fence"], E, ptr["total"], ptr["pair"],
-        ptr["invalid"], W, tile, rjs_trials, rjs_max_rounds, T,
-        int(num_steps), emitted.data_ptr(), flags.data_ptr(),
+        leaf_pointers(leaves), ptr["bmax"], ptr["cdf"], ptr["fence"], E,
+        ptr["total"], ptr["pair"], ptr["invalid"], W, tile, rjs_trials,
+        rjs_max_rounds, T, int(num_steps), emitted.data_ptr(),
+        flags.data_ptr(),
         out.cur.data_ptr(), out.prev.data_ptr(), out.step.data_ptr(),
         out.alive.data_ptr(), ptr_of(out_mass),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -6,8 +6,12 @@ constants, where the program names one, else ``GENERATED``, whose
 ``header`` holds the device code ``kernels/rulegen.py`` generates from
 the traced weight (each header builds its own instances of the kernels).
 When it has ``on_step`` / ``should_stop`` hooks, K4 runs them as a
-:class:`HookRule`.  The ids must match ``PROGRAM_*`` and ``HOOK_*`` in
-``csrc/weights.cuh``.  Constants are rounded to float32 on the host, as
+:class:`HookRule`: a hand-written one the program declares, else
+``HOOK_GENERATED``, the hooks ``rulegen`` generates into the same header
+as the weight.  A generated rule reads the walkers' ``wstate`` leaves
+(``leaves``: each one's dtype and per-walker shape), at most
+:data:`MAX_GEN_LEAVES` of at most :data:`MAX_GEN_WIDTH` values a walker.
+The ids must match ``PROGRAM_*`` and ``HOOK_*`` in ``csrc/weights.cuh``.  Constants are rounded to float32 on the host, as
 jax rounds the Python constants of the reference's rules.
 """
 from __future__ import annotations
@@ -31,6 +35,12 @@ MAX_SCHEMA = 8
 
 HOOK_NONE = 0
 HOOK_PPR_NIBBLE = 1
+HOOK_GENERATED = 2
+
+#: most wstate leaves, and most values of one a walker, a generated rule
+#: reads (``kMaxGenLeaves`` / ``kMaxGenWidth``)
+MAX_GEN_LEAVES = 8
+MAX_GEN_WIDTH = 64
 
 
 def f32(x: float) -> float:
@@ -54,7 +64,10 @@ class KernelRule:
     """``program``: rule id; ``weighted``: whether h enters; ``c0`` /
     ``c2``: Node2Vec's factors at dist 0 and 2 (1/a, 1/b); ``g1`` / ``g``:
     second-order PageRank's 1−γ and γ; ``schema``: MetaPath's label
-    schema; ``window``: the visited-avoiding ring's length."""
+    schema; ``window``: the visited-avoiding ring's length.  A generated
+    rule: ``header``, its program's state leaves ``leaves``
+    (``flexi_compiler.LeafSpec``) and the ones its weight reads,
+    ``reads_leaves``."""
 
     program: int
     weighted: bool
@@ -65,6 +78,8 @@ class KernelRule:
     schema: Tuple[int, ...] = ()
     window: int = 0
     header: str = dataclasses.field(default="", repr=False)
+    leaves: Tuple = ()
+    reads_leaves: Tuple[int, ...] = ()
 
     def as_struct(self) -> RuleStruct:
         s = RuleStruct(program=self.program, weighted=int(self.weighted),
@@ -77,11 +92,22 @@ class KernelRule:
 
 @dataclasses.dataclass(frozen=True)
 class HookRule:
-    """``kind``: hook id; ``decay`` / ``eps``: PPR-Nibble's 1−α and ε."""
+    """``kind``: hook id; ``decay`` / ``eps``: PPR-Nibble's 1−α and ε;
+    ``header`` / ``leaves``: the generated rule that holds
+    ``HOOK_GENERATED``'s hooks, and the state leaves they update."""
 
     kind: int
     decay: float = 1.0
     eps: float = 0.0
+    header: str = dataclasses.field(default="", repr=False)
+    leaves: Tuple = ()
+
+
+def leaf_pointers(tensors) -> "ctypes.Array":
+    """The kernels' ``GenLeaves`` argument: one data pointer a leaf (None
+    for a leaf not passed), padded to :data:`MAX_GEN_LEAVES`."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    return (ctypes.c_void_p * MAX_GEN_LEAVES)(*ptrs)
 
 
 def node2vec_rule(a: float, b: float, weighted: bool) -> KernelRule:

@@ -11,7 +11,9 @@
 under that name at run time and runs it, e.g. ``--workload
 repro_torch.walks.examples:degree_damped``: a user program that declares
 nothing, analysed by the compiler (the flag line) and run on the card as
-generated device code.
+generated device code; the flag line's ``step_exec=`` is the path the
+engine resolved, so ``--step-exec fused`` shows whether a user's hooked
+program runs fused (K4 with its generated hooks).
 """
 from __future__ import annotations
 

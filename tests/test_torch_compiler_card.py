@@ -7,9 +7,18 @@ pytest -q -m cuda tests/test_torch_compiler_card.py``).
   rules, and K1 / K2 under the quickstart program's rule agree with
   their plain versions.
 * The quickstart program runs adaptive on the card and launches K1 and
-  K2; a program whose weight rulegen cannot lower (a sort) or that reads
-  ``wstate`` raises there, naming the op or field.
+  K2; a program whose weight rulegen cannot lower (a sort, also a sort
+  over a ``wstate`` leaf) raises there, naming the op.
+* State reads and hooks: K1 (plain and jump) and K2 under visited_avoiding
+  stripped of its hand rule (a generated weight reading the ring) choose
+  bit for bit as under the hand VISITED rule; K4's ``HOOK_GENERATED``
+  instances (ppr_nibble stripped of its hook rule) give the
+  ``HOOK_PPR_NIBBLE`` instances' paths, flags and end state bit for bit in
+  all four regimes; the quickstart program and non_backtracking run fused
+  (K4 with generated hooks) as they run staged, end state included.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +33,13 @@ from repro_torch.kernels.erjs import erjs_select
 from repro_torch.kernels.ervs import ervs_select
 from repro_torch.kernels.prng import key_data
 from repro_torch.walks import make_workload
-from repro_torch.walks.examples import degree_damped, stripped
+from repro_torch.walks.examples import (degree_damped, non_backtracking,
+                                        stripped)
+
+#: fused regime -> the method that runs it
+FUSED_METHODS = {"reservoir": "ervs", "rejection": "erjs",
+                 "precomp_its": "its_precomp",
+                 "precomp_alias": "alias_precomp"}
 
 
 def _walkers(graph, n, seed):
@@ -105,6 +120,107 @@ def test_unlowerable_weights_raise_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="sort"):
         eng.run(np.arange(50), num_steps=3)
     visited = make_workload("visited_avoiding")
-    eng = WalkEngine(graph, stripped(visited), EngineConfig(method="ervs"))
-    with pytest.raises(ValueError, match="wstate"):
+
+    def sorted_ring(c, p, ws):
+        first = ws[0].sort(dim=-1).values[:, 0]
+        first = first.reshape(first.shape + (1,) * (c.nbr.dim() - 1))
+        return torch.where(first == c.nbr, 0.0, c.h)
+
+    eng = WalkEngine(graph, stripped(dataclasses.replace(
+        visited, get_weight=sorted_ring)), EngineConfig(method="ervs"))
+    with pytest.raises(ValueError, match="sort.*wstate leaf 0"):
         eng.run(np.arange(50), num_steps=3)
+
+
+def _rings(graph, cur, window, seed):
+    """[n, window] int32 rings holding some of each walker's neighbours,
+    the rest -1 (empty) or other nodes."""
+    rng = np.random.default_rng(seed)
+    indptr = graph.indptr.cpu().numpy().astype(np.int64)
+    indices = graph.indices.cpu().numpy()
+    c = cur.cpu().numpy()
+    deg = np.diff(indptr)[c]
+    slot = (rng.random((c.size, window)) * deg[:, None]).astype(np.int64)
+    ring = indices[indptr[c][:, None] + slot].astype(np.int32)
+    other = rng.integers(0, graph.num_nodes, ring.shape).astype(np.int32)
+    pick = rng.random(ring.shape)
+    ring = np.where(pick < 0.25, -1, np.where(pick < 0.4, other, ring))
+    return torch.from_numpy(ring).to(cur.device)
+
+
+@pytest.mark.cuda
+def test_generated_state_reads_choose_as_the_hand_visited_rule(cuda_device):
+    graph = power_law_graph(4000, 10, seed=1).to(cuda_device)
+    hand = make_workload("visited_avoiding")
+    gen = stripped(hand)
+    cur, prev, step, keys = _walkers(graph, 4096, 6)
+    ws = (_rings(graph, cur, 16, 7),)
+    for jump in (False, True):
+        a, b = (ervs_select(graph, p, p.params(), cur, prev, step, keys,
+                            tile=256, jump=jump, wstate=ws)
+                for p in (hand, gen))
+        assert torch.equal(a, b), jump
+    bound = torch.full(cur.shape, 2.0, device=cuda_device)
+    outs = [erjs_select(graph, p, p.params(), cur, prev, step, keys, bound,
+                        wstate=ws) for p in (hand, gen)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    want = erjs_mod.erjs_step(graph, gen, gen.params(), cur, prev, step,
+                              keys, bound, wstate=ws)
+    for a, b in zip(outs[1], want):
+        assert torch.equal(a, b)
+
+
+def _same_epoch(a, b):
+    (sa, ea, fa), (sb, eb, fb) = a, b
+    assert torch.equal(ea, eb) and torch.equal(fa, fb)
+    for f in ("cur", "prev", "step", "alive"):
+        assert torch.equal(getattr(sa, f), getattr(sb, f)), f
+    for x, y in zip(sa.wstate, sb.wstate):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(FUSED_METHODS))
+def test_generated_hooks_equal_the_hand_hook_rule(cuda_device, kind):
+    graph = power_law_graph(4000, 10, seed=1).to(cuda_device)
+    hand = make_workload("ppr_nibble")
+    gen = stripped(hand, hooks=True)
+    eng = WalkEngine(graph, gen, EngineConfig(
+        method=FUSED_METHODS[kind], step_exec="fused"))
+    assert eng.step_exec_resolved == "fused"
+    cur, _, _, _ = _walkers(graph, 4096, 8)
+    mass = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.05, 1.0, 4096).astype(np.float32)).to(cuda_device)
+    state = WalkerState.create(cur, key_data(3), wstate=(mass,))
+    args = dict(kind=kind, tile=256, rjs_trials=1, rjs_max_rounds=1,
+                epoch_len=16, num_steps=80, bmax=eng._fused_bmax,
+                tables=eng.precomp)
+    build.reset_launches()
+    got = megastep.fused_epoch(graph, gen, gen.params(), state, **args)
+    assert build.LAUNCHES[f"fused_epoch_{kind}"] == 1
+    _same_epoch(got, megastep.fused_epoch(graph, hand, hand.params(), state,
+                                          **args))
+    assert torch.equal(state.wstate[0], mass)  # the input stays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [degree_damped, non_backtracking])
+def test_hooked_user_programs_run_fused_as_staged(cuda_device, make):
+    graph = power_law_graph(4000, 10, seed=1).to(cuda_device)
+    prog = make()
+    engs = [WalkEngine(graph, prog, EngineConfig(method="ervs",
+                                                 step_exec=sx))
+            for sx in ("fused", "staged")]
+    assert engs[0].step_exec_resolved == "fused"
+    starts = torch.arange(4000, device=cuda_device)
+    state = WalkerState.create(starts, key_data(5),
+                               wstate=prog.init_wstate_batch(starts))
+    (sa, ea, ta), (sb, eb, tb) = (
+        e.run_epoch_fn(state, epoch_len=12, num_steps=12) for e in engs)
+    assert torch.equal(ea, eb) and ta == tb  # paths and telemetry
+    for f in ("cur", "prev", "step", "alive"):
+        assert torch.equal(getattr(sa, f), getattr(sb, f)), f
+    assert torch.equal(sa.wstate[0], sb.wstate[0])
+    res = [e.run(np.arange(4000), num_steps=12) for e in engs]
+    assert np.array_equal(res[0].paths, res[1].paths)

@@ -7,9 +7,11 @@
   kind, ``bound_fn``, ``sum_fn`` (bitwise), ``static_taint``,
   ``is_static`` and ``fuse_report``.
 * ``rulegen``: its plain evaluator equals ``get_weight`` bitwise for every
-  registry program it lowers (visited_avoiding reads ``wstate``: it
-  raises), equals the reference's jnp weight for ``exp`` / ``log``; it
-  raises naming the op for a sort and naming ``wstate`` for a state read;
+  registry program it lowers, equals the reference's jnp weight for
+  ``exp`` / ``log``; the weights that read ``wstate`` (visited_avoiding's
+  ring, non_backtracking's last node) lower, and it raises naming the op
+  for a sort, also over the ring, and naming the leaf for a leaf dtype it
+  does not hold;
   its header rounds each float op alone, writes hex-float constants and a
   ``constexpr`` table; ``kernel_rule`` returns the hand rule where a
   program names one, else the generated rule.
@@ -19,6 +21,8 @@
   near-tie contract and passes chi-square against ``exact_probs``; the
   CLI runs a ``module:factory`` program registered at run time.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,7 +48,8 @@ from repro_torch.kernels.ervs import kernel_rule
 from repro_torch.kernels.rules import GENERATED, NODE2VEC
 from repro_torch.launch import walk as walk_cli
 from repro_torch.walks import make_workload
-from repro_torch.walks.examples import degree_damped, stripped
+from repro_torch.walks.examples import (degree_damped, non_backtracking,
+                                        stripped)
 
 N = 1024
 
@@ -90,23 +95,14 @@ def _exp_programs():
 
 
 def _nonbacktracking_programs():
-    """w = 0 for the node the walker last left (its wstate), else h."""
+    """w = 0 for the node the walker last left (its wstate), else h (the
+    port half: ``walks.examples.non_backtracking``)."""
     ref = RefWalkProgram(
         name="non-backtracking", init=lambda: (),
         get_weight=lambda c, p, last: jnp.where(c.nbr == last, 0.0, c.h),
         init_walker_state=lambda q: jnp.int32(-1),
         on_step=lambda c, p, last: c.cur.astype(jnp.int32))
-
-    def get_weight(c, p, ws):
-        last = ws[0].reshape(ws[0].shape + (1,) * (c.nbr.dim() - 1))
-        return torch.where(c.nbr == last, 0.0, c.h)
-
-    port = WalkProgram(
-        name="non-backtracking", init=lambda: (), get_weight=get_weight,
-        init_walker_state=lambda q: (torch.full(
-            (q.shape[0],), -1, dtype=torch.int32, device=q.device),),
-        on_step=lambda c, p, ws: (c.cur.to(torch.int32),))
-    return ref, port
+    return ref, non_backtracking()
 
 
 def _last_nodes(n, seed):
@@ -213,14 +209,28 @@ def test_rulegen_exp_log_equals_the_reference():
 def test_rulegen_raises_naming_the_op_or_field():
     with pytest.raises(ValueError, match="sort"):
         rulegen.lower(_sort_programs()[1])
+    # weights that read wstate lower: the ring and the last node are state
+    # reads the generated rule makes
     for prog in (_nonbacktracking_programs()[1],
                  make_workload("visited_avoiding")):
-        with pytest.raises(ValueError, match="wstate"):
-            rulegen.lower(prog)
+        assert rulegen.lower(prog).reads_leaves == {0}
     with pytest.raises(ValueError, match="traced"):
         rulegen.lower(_branch_programs()[1])
-    with pytest.raises(ValueError, match="wstate"):
-        kernel_rule(_nonbacktracking_programs()[1], ())
+    # what still raises on a state read: a sort over the ring, a leaf of a
+    # dtype the generated rule does not hold
+    visited = make_workload("visited_avoiding")
+
+    def sorted_ring(c, p, ws):
+        first = ws[0].sort(dim=-1).values[:, 0]
+        return torch.where(first == c.nbr, 0.0, c.h)
+    with pytest.raises(ValueError, match="sort.*wstate leaf 0"):
+        rulegen.lower(dataclasses.replace(visited, get_weight=sorted_ring))
+    nb = non_backtracking()
+    wide = dataclasses.replace(nb, init_walker_state=lambda q: (torch.full(
+        (q.shape[0],), -1, dtype=torch.float64),))
+    with pytest.raises(ValueError, match="wstate leaf 0 of dtype "
+                                         "torch.float64"):
+        kernel_rule(stripped(wide), ())
 
 
 def test_rulegen_header():

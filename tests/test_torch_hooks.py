@@ -11,7 +11,9 @@
   against ``exact_probs(..., wstate)``;
 * ``_bake_bmax`` evaluates the bound at ``wstate_template()``: for a
   hooked program it equals every walker's bound, and the reference's;
-* the fused plan stays staged for hooks the kernel does not implement.
+* the fused plan is the reference's (hooks that keep their shapes never
+  keep a program staged); what K4 lacks raises instead: a declared hook
+  rule of an unknown kind, or hooks ``rulegen`` cannot lower.
 
 The kernels themselves run only on the card (``cuda`` marker): K1 and K2
 under every device rule, and K4's hooked instances, against their plain
@@ -127,8 +129,8 @@ def test_should_stop_caps_paths(graphs):
     eng = WalkEngine(pg, _counter_program(4),
                      EngineConfig(method="adaptive", device="cpu"))
     assert eng.step_exec_resolved == "staged"
-    # its hooks keep their shapes, but they have no device form for K4
-    assert eng.fuse.hooks_fusable and not megastep.runs_hooks(eng.workload)
+    # its hooks keep their shapes, and K4 runs them as generated code
+    assert eng.fuse.hooks_fusable and megastep.runs_hooks(eng.workload)
     full = eng.run(np.arange(V), num_steps=STEPS)
     emitted = (full.paths[:, 1:] >= 0).sum(axis=1)
     assert emitted.max() == 4 and (emitted == 4).mean() > 0.9
@@ -194,16 +196,28 @@ def test_bake_bmax_at_the_wstate_template(graphs):
 
 
 def test_fused_plan_stays_staged_for_hooks_the_kernel_lacks(graphs):
+    """No program stays staged for its hooks any more: the plan is the
+    reference's (fusable, the sampler's fused kind, a node-local bound for
+    rejection), and K4 runs a declared hook rule or generated hooks.  What
+    the kernel lacks raises: K4's check refuses a declared hook rule of an
+    unknown kind, and ``kernel_hooks`` hooks that rulegen cannot lower,
+    naming the op."""
     _, pg = graphs
     capped = _counter_program(4)
     foreign = dataclasses.replace(capped,
                                   hook_rule=lambda p: HookRule(kind=7))
-    for prog in (capped, foreign):
+    sorted_hooks = dataclasses.replace(
+        capped, should_stop=lambda c, p, ws: torch.sort(ws[0]).values >= 4)
+    for prog in (capped, foreign, sorted_hooks):
         eng = WalkEngine(pg, prog, EngineConfig(
             method="ervs", step_exec="fused", tile=TILE, device="cpu"))
-        assert eng.step_exec_resolved == "staged"
+        assert eng.step_exec_resolved == "fused"
     assert megastep.runs_hooks(make_workload("ppr_nibble"))
+    assert megastep.runs_hooks(capped)
     assert not megastep.runs_hooks(foreign)
+    assert not megastep.runs_hooks(sorted_hooks)
+    with pytest.raises(ValueError, match="should_stop.*sort"):
+        megastep.kernel_hooks(sorted_hooks, ())
     W = 4
     state = WalkerState.create(torch.arange(W), key_data(0),
                                wstate=(torch.zeros(W, dtype=torch.int64),))

@@ -251,6 +251,8 @@ def _first_divergence_is_near_tie(eng, ref_paths, got_paths, q) -> bool:
             window = eng.sampler_ctx.params.window
             ws = (torch.from_numpy(_ring_before(ref_paths[q], t, window))[
                 None],)
+        elif eng.workload.name == "non-backtracking":  # the node it left
+            ws = (torch.tensor([prev], dtype=torch.int32),)
         else:  # the mass: the weights do not read it
             ws = tuple(x[None] for x in eng.workload.wstate_template())
     state = WalkerState(cur=one(cur), prev=one(prev), step=one(t),
