@@ -6,7 +6,7 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — compile K1–K8 from ``src/repro_torch/kernels/csrc`` with nvcc
+1. build   — compile K1–K12 from ``src/repro_torch/kernels/csrc`` with nvcc
              (one process per source, in parallel); then lower phase 4b's
              and 4c's programs to generated device rules
              (``kernels/rulegen.py``: weights, state reads and hooks) and
@@ -92,7 +92,13 @@ Phases (any failure exits non-zero and prints no result line):
              HOOK_PPR_NIBBLE's launch, and K4's reservoir under the
              quickstart program and non_backtracking (generated weight,
              state and hooks); then the whole engine on a small graph,
-             kernels (cuda) against plain versions (cpu).
+             kernels (cuda) against plain versions (cpu); (3f) the
+             baselines' row kernels K9–K12 (``csrc/baselines.cu``) under
+             each Table 2 program's rule, bitwise, on 2,048 walkers 3
+             steps in on rows of at most 4,096 (plain versions and
+             kernels at pad 4,096), K12 -> K2 -> K9 as ``rjs_maxreduce``
+             composes them, then on walkers on the 2 largest rows at the
+             engine's pad (plain versions on the host).
 4. main    — ``WalkEngine(graph, make_workload(name), EngineConfig(
              method="adaptive", jump_threshold=8)).run(np.arange(V),
              num_steps=80)`` for every registry program (node2vec,
@@ -105,9 +111,9 @@ Phases (any failure exits non-zero and prints no result line):
              cut from 80, degree over 80), which must launch K1 and K2;
              then each fused method
              with ``step_exec="fused"`` and again ``"staged"``, for
-             ppr_nibble over 80 steps and for deepwalk over
-             ``DEEPWALK_PAIR_STEPS`` (16, cut from 80 to keep the smoke
-             inside its time limit): the fused run must resolve "fused",
+             deepwalk and ppr_nibble over ``PAIR_STEPS`` (16, cut from
+             80 to keep the smoke inside its time limit; 4c's
+             generated-hooks runs follow): the fused run must resolve "fused",
              launch K4 and give the staged run's paths and telemetry bit
              for bit.  Launch counts are reset just before each run and
              read just after; ``run()`` reports its own host-clock split
@@ -133,22 +139,34 @@ Phases (any failure exits non-zero and prints no result line):
              HOOK_GENERATED instance and give the declared fused run's
              paths, telemetry and end state (mass included) bit for bit;
              the quickstart program (80 steps) and non_backtracking
-             (``NONBACKTRACKING_STEPS``, 16) run fused under ervs (K4 with
+             (``NONBACKTRACKING_STEPS``, 8) run fused under ervs (K4 with
              a generated weight, state and hooks) and must equal their
              staged ervs runs likewise.
+4d. baselines — Table 2's five workloads (node2vec_unweighted,
+             node2vec, metapath_unweighted, metapath, 2ndpr) under
+             ``its`` (K9), ``als`` (K11), ``rvs_prefix`` (K10),
+             ``rjs_maxreduce`` (K12, then K2 with the exact row maximum,
+             then K9 on its fallbacks) and ``adaptive``, each with the
+             default ``EngineConfig`` on the full graph: the same
+             ``BASELINE_QUERIES`` start nodes (``default_rng(0)``, without
+             replacement) over 8 steps.  Each run must launch its kernels
+             and emit only edges, and logs ``run()``'s split, its live
+             walker-steps/s and its peak device memory.
 5. timing  — each kernel and its plain version on the lanes one main-path
              step hands it (the state after ``MID_STEP`` steps: 8, or 4
              for the short MetaPath and PPR-Nibble walks) under each
              program whose main-path run launched it, with CUDA events;
              the kernel must agree with the plain version there as in
-             phase 3 (2ndpr's K1 jump lanes: on 4,096 of them, one on each
-             of the 64 largest distinct rows and the rest drawn at random,
-             ``JUMP_PLAIN_SUBSET``; the plain scan of all of them took
-             223 s).  Before the timing, K1 jump is held bitwise against
-             its plain version at tiles 2, 64 and 1,024 (``JUMP_TILES``)
-             under node2vec, 2ndpr and visited_avoiding, on 2,048 walkers
-             3 steps in (at a tile, those whose lanes hold at most 256
-             items), some with no previous node and some whose previous
+             phase 3 (2ndpr's K1 jump lanes: on 256 of them, one on each
+             of the 64 largest distinct rows and the rest drawn at
+             random, ``JUMP_PLAIN_SUBSET``, cut from 4,096 when phase 4d
+             came in; the plain scan of all of them took 223 s).  Before
+             the timing, K1 jump is held bitwise against its plain
+             version at tiles 2, 64 and 1,024 (``JUMP_TILES``) under
+             node2vec, 2ndpr and visited_avoiding, on 1,024 walkers (cut
+             from 2,048 when phase 4d came in) 3 steps in (at a tile,
+             those whose lanes hold at most 256 items), some with no
+             previous node and some whose previous
              node has the largest row.  A kernel that gets no lane at
              that step is timed at the first later step that gives it
              lanes (its row's ``step``); none at all fails.  K4: one
@@ -169,7 +187,18 @@ Phases (any failure exits non-zero and prints no result line):
              launch (``cold_ms``), as the main path meets them between
              other kernels.  The build phase logs the SASS of K4's
              reservoir edge loops by pipe (``scan_sass``) and of K3's and
-             K5's kernels (``draw_sass``).
+             K5's kernels (``draw_sass``).  K9–K12 on the live lanes of
+             phase 4d's queries after 4 steps under each Table 2 program
+             (rows ``its_row/<program>`` ...), bounded by each lane's row
+             read once (indices, h, labels; for the dist tests the
+             previous node's row, or a 32 B sector a neighbour where the
+             lane's row is shorter) and, for K10, a Threefry per
+             neighbour; each is held bitwise against its plain version at
+             the engine's pad on a subset of the timed lanes (the [n, pad]
+             block of every lane would not fit on the card): up to one
+             lane on each of the 64 largest rows among them and random
+             lanes, 1,024 in all (ALS: the largest row and 3 random
+             lanes), and its plain ms are on that subset.
 
 ``jump_threshold`` is lowered from the default 1024 to 8, the cost
 model's ``min_rjs_degree``: at uniform weights Eq. 11 sends every hub to
@@ -315,9 +344,10 @@ FUSED_METHODS = {"reservoir": "ervs", "rejection": "erjs",
 # the programs run fused against staged: the hook-free deepwalk and the
 # hooked ppr_nibble
 FUSED_PROGRAMS = ("deepwalk", "ppr_nibble")
-# depth of deepwalk's fused / staged pairs: 16 of its 80 steps, to keep
-# the smoke inside its time limit (ppr_nibble's pairs walk all 80)
-DEEPWALK_PAIR_STEPS = 16
+# depth of the fused / staged pairs: 16 of the 80 steps, to keep the
+# smoke inside its time limit (ppr_nibble's, and so phase 4c's
+# generated-hooks runs, since phase 4d came in)
+PAIR_STEPS = 16
 # kernels each staged fused-method run must launch
 STAGED_NEEDS = {"ervs": ("ervs_select",), "erjs": ("erjs_select",),
                 "its_precomp": ("its_search",),
@@ -357,12 +387,13 @@ GEN = "gen:"
 # HOOK_GENERATED instances), label GEN_HOOKS + name, fused under every
 # method against the declared fused runs; the quickstart program and
 # non_backtracking (walks.examples) fused under ervs against their staged
-# runs, non_backtracking over NONBACKTRACKING_STEPS
+# runs, non_backtracking over NONBACKTRACKING_STEPS (8; 16 before phase
+# 4d came in)
 STATE_ADAPTIVE = ("visited_avoiding",)
 GEN_HOOKS = "gen-hooks:"
 HOOKED_FUSED = "ppr_nibble"
 NONBACKTRACKING = "non_backtracking"
-NONBACKTRACKING_STEPS = 16
+NONBACKTRACKING_STEPS = 8
 USER_FUSED = (QUICKSTART, NONBACKTRACKING)
 # main-path depth of the adaptive programs cut below WALK_STEPS to keep the
 # smoke inside its time limit (2ndpr: 140 s at 80 steps)
@@ -370,6 +401,40 @@ MAIN_STEPS = {"2ndpr": 16}
 # the Fig. 13 selector cells: node2vec under each method, and their depth
 SELECTOR_METHODS = ("random", "degree")
 SELECTOR_STEPS = {"random": 16, "degree": 80}
+# phase 4d, the Table 2 baselines (``benchmarks/table2.py:12-18``): C-SAW's
+# ITS, Skywalker's ALS, FlowWalker's prefix reservoir and NextDoor's
+# max-reduce rejection (K9-K12) and adaptive on the same queries; their
+# full-row work grows with the walkers' rows, so the phase cuts queries
+# (``BASELINE_QUERIES`` start nodes of ``default_rng(BASELINE_SEED)``),
+# not width: at 65,536 the phase takes ~30 s on an H100, well inside the
+# ~150 s it may take, so no halving was needed
+TABLE2_PROGRAMS = ("node2vec_unweighted", "node2vec", "metapath_unweighted",
+                   "metapath", "2ndpr")
+BASELINE_METHODS = ("its", "als", "rvs_prefix", "rjs_maxreduce")
+BASELINE_NEEDS = {"its": ("its_row",), "als": ("als_row",),
+                  "rvs_prefix": ("rvs_prefix_row",),
+                  "rjs_maxreduce": ("row_max", "erjs_select")}
+BASELINE_QUERIES = 65_536
+BASELINE_STEPS = 8
+BASELINE_SEED = 0
+# phase 3f: walkers on rows of at most this many entries, the plain
+# versions at this pad; then walkers on the largest rows at the engine's
+# pad
+BASELINE_CHECK_PAD = 4096
+BASELINE_CHECK_WALKERS = 2048
+BASELINE_HUB_WALKERS = 2
+# phase 5: the step of the phase-4d queries K9-K12 are timed at; their
+# plain versions at the engine's pad on a subset of those lanes (up to one
+# lane on each of the OPS_HUB_LANES largest distinct rows among them, the
+# rest drawn with BASELINE_PLAIN_SEED), BASELINE_PLAIN_CHUNK lanes a call
+# ([chunk, pad] blocks on the card); ALS's plain Vose loop on the lane of
+# the largest row and BASELINE_ALS_PLAIN_LANES - 1 more (drawn with the
+# same seed), which it finishes on the host
+BASELINE_TIMED_STEP = 4
+BASELINE_PLAIN_LANES = 1024
+BASELINE_PLAIN_CHUNK = 64
+BASELINE_ALS_PLAIN_LANES = 4
+BASELINE_PLAIN_SEED = 16
 # phase 2b, the standalone ops: K7's (trials, rounds), K6's plain check
 # on the hub-heavy set (walkers, distinct largest rows among them,
 # sampling seed) and its timed launches there
@@ -402,8 +467,8 @@ K1_RULE = {False: "all near-ties", True: "none (bitwise)"}
 # JUMP_PLAIN_SEED), because the plain scan of all of 2ndpr's hub lanes
 # took 223 s (~10^11 edges); K1 itself still runs and is timed on all
 # lanes
-JUMP_PLAIN_SUBSET = {"2ndpr": 4096}
-JUMP_PLAIN_PER_ROW = 16
+JUMP_PLAIN_SUBSET = {"2ndpr": 256}
+JUMP_PLAIN_PER_ROW = 1
 JUMP_PLAIN_SEED = 15
 # phase 5: K1 jump against its plain version at these tiles (one thread
 # holds 1, 2 and 32 lanes; 1,024 is the largest one-pass tile) under the
@@ -417,7 +482,7 @@ JUMP_PLAIN_SEED = 15
 # program
 JUMP_TILES = (2, 64, 1024)
 JUMP_TILE_PROGRAMS = ("node2vec", "2ndpr", "visited_avoiding")
-JUMP_TILE_WALKERS = 2048
+JUMP_TILE_WALKERS = 1024
 JUMP_TILE_ITEMS = 256
 # operations of one edge of the jump scan that takes nothing: the rule's
 # weight (at most ~6 float operations and the dist test's compare), the
@@ -1609,7 +1674,7 @@ def compiler_main(args, declared: dict, gen_adaptive: dict,
         launched[label] = [k for k, n in counts.items() if n]
         launches.update({(k, label): counts[k] for k in launched[label]})
         del res
-    steps = min(args.steps, DEEPWALK_PAIR_STEPS)
+    steps = min(args.steps, PAIR_STEPS)
     for kind, eng in gen_fused.items():
         label, name = GEN + "deepwalk", f"fused_epoch_{kind}"
         if eng.step_exec_resolved != "fused":
@@ -3204,6 +3269,313 @@ def fig12a_on_card(dev) -> None:
             f" of {(deg + TILE - 1) // TILE}")
 
 
+# ---------------------------------------------------- phase 4d, baselines
+def baseline_fns():
+    """kernel name -> (wrapper, plain version), called as
+    ``kernel(graph, program, params, cur, prev, step, keys, pad=,
+    wstate=)`` and ``plain(graph, ..., keys, pad, wstate=)``."""
+    from repro_torch.core import baselines as plain
+    from repro_torch.kernels import baselines as kb
+
+    return {
+        "its_row": (kb.its_select, plain.its_step),
+        "rvs_prefix_row": (kb.rvs_prefix_select, plain.rvs_prefix_step),
+        "als_row": (kb.als_select, plain.als_step),
+        # K12 takes no keys
+        "row_max": (lambda *a, pad, wstate: kb.row_max(
+            *a[:6], pad=pad, wstate=wstate),
+            lambda *a, wstate: plain.row_max(*a[:6], a[7], wstate=wstate)),
+    }
+
+
+def same_bits(got, want) -> int:
+    """Entries where two results differ bit for bit (floats by bits)."""
+    import torch
+
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return int((got.cpu() != want.cpu()).sum())
+
+
+def check_baselines(graph, adaptive: dict, seed: int) -> dict:
+    """Phase 3f: K9-K12 against their plain versions, bitwise: under each
+    Table 2 program's rule on ``BASELINE_CHECK_WALKERS`` walkers 3 steps
+    into their walks on rows of at most ``BASELINE_CHECK_PAD`` (both at
+    that pad), K12 -> K2 -> K9 as ``rjs_maxreduce`` composes them; then on
+    the ``BASELINE_HUB_WALKERS`` largest rows at the engine's pad, the
+    plain versions on the host.  Returns the plain versions' and the
+    kernels' ms on the check walkers, by (kernel, program)."""
+    import torch
+    from repro_torch.core import baselines as plain
+    from repro_torch.kernels import baselines as kb
+
+    fns = baseline_fns()
+    times = {}
+    pad = BASELINE_CHECK_PAD
+    for pname in TABLE2_PROGRAMS:
+        eng = adaptive[pname]
+        prog, params, cfg = eng.workload, eng.sampler_ctx.params, eng.config
+        cur, prev, step, keys, ws, _ = program_walkers(
+            eng, BASELINE_CHECK_WALKERS, seed, max_deg=pad)
+        args = (graph, prog, params, cur, prev, step, keys)
+        for name, (kernel, ref_fn) in fns.items():
+            got, ms = cuda_once(lambda: kernel(*args, pad=pad, wstate=ws))
+            want, plain_ms = cuda_once(lambda: ref_fn(*args, pad,
+                                                      wstate=ws))
+            bad = same_bits(got, want)
+            if bad:
+                fail(f"{name} [{pname}]: {bad} of {cur.shape[0]} walkers "
+                     f"differ from the plain version at pad {pad}")
+            times[name, pname] = dict(plain_ms=plain_ms, check_ms=ms,
+                                      checked=cur.shape[0])
+        trials, rounds = cfg.rjs_trials, 4 * cfg.rjs_max_rounds
+        got = kb.rjs_maxreduce_select(*args, pad=pad,
+                                      trials_per_round=trials,
+                                      max_rounds=rounds, wstate=ws)
+        want = plain.rjs_maxreduce_step(*args, pad, trials_per_round=trials,
+                                        max_rounds=rounds, wstate=ws)
+        if same_bits(got, want):
+            fail(f"rjs_maxreduce [{pname}]: K12 -> K2 -> K9 differs from "
+                 f"the plain version")
+        log(f"check [{pname}]: its_row, rvs_prefix_row, als_row, row_max "
+            f"and rjs_maxreduce bitwise equal to their plain versions on "
+            f"{cur.shape[0]} walkers at pad {pad} (plain / kernel ms: "
+            + ", ".join(f"{n} {times[n, pname]['plain_ms']:.2f} / "
+                        f"{times[n, pname]['check_ms']:.3f}" for n in fns)
+            + ")")
+    # the largest rows at the engine's pad, the plain versions on the host
+    t0 = time.perf_counter()
+    host = graph.to("cpu")
+    for pname in TABLE2_PROGRAMS:
+        eng = adaptive[pname]
+        prog, params = eng.workload, eng.sampler_ctx.params
+        cur, prev, keys = walkers(graph, 32, seed)
+        n = BASELINE_HUB_WALKERS
+        step = torch.full((n,), 3, dtype=torch.int64, device=cur.device)
+        args = (graph, prog, params, cur[:n], prev[:n], step, keys[:n])
+        cpu_args = (host, prog, params) + tuple(a.cpu() for a in args[3:])
+        for name, (kernel, ref_fn) in fns.items():
+            got = kernel(*args, pad=eng.pad, wstate=None)
+            want = ref_fn(*cpu_args, eng.pad, wstate=None)
+            if same_bits(got, want):
+                fail(f"{name} [{pname}]: differs from the plain version on "
+                     f"the largest rows at pad {eng.pad}")
+    deg = graph.degrees()[cur[:n]].tolist()
+    log(f"check: K9-K12 bitwise equal to their plain versions on the "
+        f"{n} largest rows (degrees {deg}) at pad {adaptive['node2vec'].pad}"
+        f" under {', '.join(TABLE2_PROGRAMS)}, plain versions on the host, "
+        f"in {time.perf_counter() - t0:.1f} s")
+    del host
+    return times
+
+
+def baseline_starts(V: int, queries: int):
+    import numpy as np
+
+    return np.random.default_rng(BASELINE_SEED).choice(
+        V, size=min(queries, V), replace=False)
+
+
+def baselines_main(graph, queries: int, steps: int) -> dict:
+    """Phase 4d: Table 2's five workloads under the four baselines and
+    adaptive, on the same ``queries`` start nodes over ``steps`` steps.
+    Each run must launch its kernels and emit only edges.  Returns the
+    baselines' launch counts by (kernel, program) and the start nodes."""
+    import torch
+    from repro_torch.core import EngineConfig, WalkEngine
+    from repro_torch.kernels import build
+    from repro_torch.walks import make_workload
+
+    starts = baseline_starts(graph.num_nodes, queries)
+    launches = {}
+    t_phase = time.perf_counter()
+    for pname in TABLE2_PROGRAMS:
+        for method in BASELINE_METHODS + ("adaptive",):
+            eng = WalkEngine(graph, make_workload(pname),
+                             EngineConfig(method=method))
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = eng.run(starts, num_steps=steps)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: n for k, n in build.LAUNCHES.items() if n}
+            split = ", ".join(f"{k} {v:.3f} s"
+                              for k, v in res.seconds.items())
+            log(f"baselines [{pname}/{method}]: {starts.size} queries x "
+                f"{steps} steps in {dt:.2f} s, {res.live_steps} live "
+                f"walker-steps, {res.live_steps / dt:.4g} walker-steps/s; "
+                f"peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"launches {counts}; run() phases (host clock): {split}")
+            for name in BASELINE_NEEDS.get(method, ()):
+                if not counts.get(name):
+                    fail(f"baselines [{pname}/{method}] never launched "
+                         f"{name}")
+            check_paths(graph, res.paths)
+            if method == "rjs_maxreduce":
+                launches["row_max", pname] = counts["row_max"]
+                launches["its_row", pname, "fallback"] = counts.get(
+                    "its_row", 0)
+            elif method != "adaptive":
+                name = BASELINE_NEEDS[method][0]
+                launches[name, pname] = counts[name]
+            del eng, res
+    log(f"baselines: every run emitted only edges; phase 4d in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, starts
+
+
+def baseline_lanes(graph, pname: str, starts, steps_before: int):
+    """The live lanes of the phase-4d queries of ``pname`` after
+    ``steps_before`` steps under ``its``: (engine, cur, prev, step, keys,
+    program state)."""
+    import torch
+    from repro_torch.core import EngineConfig, WalkEngine
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.core.runtime import EpochScheduler
+    from repro_torch.kernels.prng import key_data
+    from repro_torch.walks import make_workload
+
+    eng = WalkEngine(graph, make_workload(pname), EngineConfig(method="its"))
+    Q = starts.size
+    sched = EpochScheduler(eng, num_steps=BASELINE_STEPS,
+                           key=key_data(eng.config.seed), slots=Q,
+                           epoch_len=steps_before, capacity=Q)
+    sched.admit(torch.arange(Q).numpy(), starts)
+    sched.run_epoch()
+    s = sched.state
+    live = s.alive & (s.step < BASELINE_STEPS) & (degrees_of(graph, s.cur)
+                                                   > 0)
+    cur, prev, step, idx, ws = lanes_of(s, live)
+    return eng, cur, prev, step, s.stream_keys()[idx].contiguous(), ws
+
+
+def baseline_work(graph, program, cur, prev, name: str):
+    """(bytes, integer-ALU, instructions) the kernel ``name`` must spend on
+    these lanes: each lane's row of indices, h (weighted programs) and
+    labels (MetaPath) read once, in whole 32 B sectors (a row starts
+    anywhere); for the dist tests (Node2Vec, 2nd-order PageRank) the
+    previous node's row read once in sectors, or one 32 B sector a
+    neighbour's probe where the lane's own row is shorter; the node
+    records of cur and prev (a sector each); the lane's inputs (cur, prev,
+    step and, but for K12, its key) and its output; for K10 one Threefry
+    and uniform per neighbour."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+
+    in_sectors = lambda d: torch.ceil(d * 4.0 / SECTOR_BYTES) * SECTOR_BYTES
+    d = degrees_of(graph, cur).double()
+    arrays = 1 + int(program.weighted) + int(program.needs_labels)
+    n = cur.shape[0]
+    per_lane = (24.0 + 4.0 if name == "row_max" else 40.0 + 8.0) \
+        + 2 * SECTOR_BYTES
+    nbytes = float(in_sectors(d).sum()) * arrays + n * per_lane
+    if program.needs_dist:
+        d_prev = degrees_of(graph, prev).double()
+        nbytes += float(torch.minimum(in_sectors(d_prev),
+                                      d * SECTOR_BYTES).sum())
+    edges = float(d.sum())
+    if name == "rvs_prefix_row":
+        return (nbytes, edges * (THREEFRY_ALU + UNIFORM_ALU),
+                edges * (THREEFRY_INSTR + UNIFORM_INSTR))
+    return nbytes, 0.0, 0.0
+
+
+def baseline_plain_lanes(cur, d):
+    """(lanes of K9, K10 and K12's plain check, lanes of ALS's): see
+    ``BASELINE_PLAIN_LANES``."""
+    import numpy as np
+    import torch
+
+    chk = hub_and_random_walkers(cur, d, BASELINE_PLAIN_LANES,
+                                 BASELINE_PLAIN_SEED)
+    rng = np.random.default_rng(BASELINE_PLAIN_SEED)
+    more = torch.from_numpy(rng.choice(
+        cur.numel(), min(BASELINE_ALS_PLAIN_LANES - 1, cur.numel()),
+        replace=False)).to(cur.device)
+    return chk, torch.unique(torch.cat([d.argmax().view(1), more]))
+
+
+def plain_in_chunks(plain_fn, args, chk, pad: int, ws):
+    """(result on the lanes ``chk`` of ``args``, ms on the card) of a plain
+    version at ``pad``, ``BASELINE_PLAIN_CHUNK`` lanes a call."""
+    import torch
+    from repro_torch.core.types import wstate_rows
+
+    graph, prog, params, *lanes = args
+    outs, total = [], 0.0
+    for a in range(0, chk.numel(), BASELINE_PLAIN_CHUNK):
+        idx = chk[a:a + BASELINE_PLAIN_CHUNK]
+        sub = tuple(x[idx].contiguous() for x in lanes)
+        out, ms = cuda_once(lambda: plain_fn(graph, prog, params, *sub, pad,
+                                             wstate=wstate_rows(ws, idx)))
+        outs.append(out)
+        total += ms
+    return torch.cat(outs), total
+
+
+def time_baselines(graph, starts, launches: dict, checks: dict,
+                   reps: int) -> dict:
+    """Phase 5, K9-K12: each kernel on the lanes of one phase-4d step (the
+    queries' state after ``BASELINE_TIMED_STEP`` steps) under each Table 2
+    program, with CUDA events, and held bitwise against its plain version
+    at the engine's pad on a subset of those lanes
+    (``baseline_plain_lanes``: at that pad every lane would take over
+    10^10 entries of [n, pad] blocks)."""
+    from repro_torch.core.ctxutil import degrees_of
+
+    fns = baseline_fns()
+    rows = {}
+    for pname in TABLE2_PROGRAMS:
+        eng, cur, prev, step, keys, ws = baseline_lanes(
+            graph, pname, starts, BASELINE_TIMED_STEP)
+        args = (graph, eng.workload, eng.sampler_ctx.params, cur, prev,
+                step, keys)
+        d = degrees_of(graph, cur)
+        chk_rows, chk_als = baseline_plain_lanes(cur, d)
+        for name, (kernel, plain_fn) in fns.items():
+            run = lambda: kernel(*args, pad=eng.pad, wstate=ws)
+            got = run()
+            ms = cuda_ms(run, reps)
+            chk = chk_als if name == "als_row" else chk_rows
+            want, plain_ms = plain_in_chunks(plain_fn, args, chk, eng.pad, ws)
+            bad = same_bits(got[chk], want)
+            if bad:
+                fail(f"{name} [{pname}] at phase-4d shapes: {bad} of "
+                     f"{chk.numel()} checked lanes differ from the plain "
+                     f"version at pad {eng.pad}")
+            nbytes, alu, instr = baseline_work(graph, eng.workload, cur,
+                                               prev, name)
+            b, by = pipe_bound(nbytes, alu, instr)
+            c = checks[name, pname]
+            rows[name, pname] = dict(
+                max_abs_err=float((got[chk].double() - want.double())
+                                  .abs().max()),
+                ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                lanes=cur.shape[0], step=BASELINE_TIMED_STEP,
+                mismatches=bad, checked=int(chk.numel()),
+                bound_note=(f"plain_ms on {chk.numel()} of the lanes at pad "
+                            f"{eng.pad} (largest row {int(d[chk].max())}); "
+                            f"phase 3f: plain {c['plain_ms']:.4f} ms, kernel"
+                            f" {c['check_ms']:.4f} ms on {c['checked']} "
+                            f"walkers at pad {BASELINE_CHECK_PAD}"))
+            extra = ""
+            if name == "its_row":
+                rows[name, pname]["fallback_launches"] = launches.get(
+                    ("its_row", pname, "fallback"), 0)
+                extra = (f", {rows[name, pname]['fallback_launches']} more "
+                         f"as rjs_maxreduce's fallback")
+            log(f"time {name} [{pname}]: {cur.shape[0]} lanes at step "
+                f"{BASELINE_TIMED_STEP}: {ms:.4f} ms (bound {b:.4f} ms by "
+                f"{by}); plain {plain_ms:.2f} ms on {chk.numel()} of them "
+                f"at pad {eng.pad} (largest row {int(d[chk].max())}), "
+                f"{bad} differences{extra}")
+        del eng
+    return rows
+
+
 SOURCES = {
     "ervs_block_select": ("src/repro_torch/kernels/csrc/ervs_block.cu",
                           "src/repro/kernels/ervs_kernel.py:109"),
@@ -3228,6 +3600,15 @@ SOURCES = {
        for kind in FUSED_METHODS},
     "token_sample": ("src/repro_torch/kernels/csrc/token_sample.cu",
                      "src/repro/kernels/token_sampler.py:68"),
+    # no TPU kernel: the reference's baselines are jnp step functions
+    "its_row": ("src/repro_torch/kernels/csrc/baselines.cu",
+                "src/repro/core/baselines.py:51"),
+    "rvs_prefix_row": ("src/repro_torch/kernels/csrc/baselines.cu",
+                       "src/repro/core/baselines.py:69"),
+    "row_max": ("src/repro_torch/kernels/csrc/baselines.cu",
+                "src/repro/core/baselines.py:89"),
+    "als_row": ("src/repro_torch/kernels/csrc/baselines.cu",
+                "src/repro/core/baselines.py:108"),
 }
 # what K4 replaces when it runs a hooked program: the hook branch
 HOOK_BRANCH = "src/repro/kernels/megastep_kernel.py:347"
@@ -3239,6 +3620,8 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=WALK_STEPS)
     ap.add_argument("--reps", type=int, default=5,
                     help="timed runs per kernel in phase 5")
+    ap.add_argument("--baseline-queries", type=int, default=BASELINE_QUERIES,
+                    help="start nodes of phase 4d's runs")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3390,6 +3773,8 @@ def main() -> int:
     for label, eng in user_fused.items():
         check_fused(graph, {"reservoir": eng}, label, seed=12)
     check_small_engine()
+    # 3f. the baselines' row kernels K9-K12
+    baseline_checks = check_baselines(graph, adaptive, seed=17)
 
     # 4. the main path, one adaptive run per program, then each fused
     # method against staged
@@ -3413,8 +3798,7 @@ def main() -> int:
             ("ervs_select", "erjs_select"))
         del eng
     for pname in FUSED_PROGRAMS:
-        steps = (min(args.steps, DEEPWALK_PAIR_STEPS) if pname == "deepwalk"
-                 else args.steps)
+        steps = min(args.steps, PAIR_STEPS)
         for kind, method in FUSED_METHODS.items():
             t0 = time.perf_counter()
             staged = WalkEngine(graph, make_workload(pname), EngineConfig(
@@ -3443,6 +3827,9 @@ def main() -> int:
     # runs, user programs fused against staged
     launches.update(hooks_main(args, declared, hook_fused, user_fused))
     del declared
+    # 4d. the Table 2 baselines and adaptive on the same queries
+    baseline_launches, baseline_q = baselines_main(
+        graph, args.baseline_queries, min(args.steps, BASELINE_STEPS))
 
     # 5. K1 jump across tiles, then kernel times at main-path shapes
     check_jump_tiles(adaptive, seed=16)
@@ -3454,6 +3841,10 @@ def main() -> int:
     rows.update(time_fused(hook_fused, GEN_HOOKS + HOOKED_FUSED))
     for label, eng in user_fused.items():
         rows.update(time_fused({"reservoir": eng}, label))
+    rows.update(time_baselines(graph, baseline_q, baseline_launches,
+                               baseline_checks, max(1, args.reps // 2)))
+    launches.update({k: n for k, n in baseline_launches.items()
+                     if len(k) == 2})
     hooked = {p for p, e in fused.items()
               if e["reservoir"].workload.has_hooks} | {
         GEN_HOOKS + HOOKED_FUSED} | set(user_fused)
@@ -3479,7 +3870,8 @@ def main() -> int:
             **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms",
                                  "cold_ms", "checked", "bound_note",
                                  "rejected", "pending", "fallbacks",
-                                 "mean_used") if k in r}})
+                                 "mean_used", "fallback_launches")
+               if k in r}})
     for (name, label), n in ops_launches.items():
         r = ops_rows[name, label]
         src, replaces = SOURCES[name]

@@ -277,6 +277,7 @@ class WalkEngine:
         self.sampler_ctx = SamplerContext(
             graph=self.graph, workload=workload, params=params,
             compiled=self.compiled, stats=self.stats, config=self.config,
+            pad=self.pad if self.sampler.caps.needs_padded_row else 0,
             precomp=(precomp_mod.build_tables(
                 self.graph, workload, params,
                 alias=self.sampler.caps.needs_alias)

@@ -4,10 +4,13 @@
 The engine resolves ``EngineConfig.method`` through the registry and calls
 ``sampler.select(ctx, state, keys, active=live)`` once per step.  The port
 registers ``adaptive``, ``ervs``, ``ervs_jump``, ``erjs``, ``its_precomp``,
-``alias_precomp`` and the Fig. 13 selector baselines ``random`` and
+``alias_precomp``, the Fig. 13 selector baselines ``random`` and
 ``degree`` (a coin flip, and rejection for rows of at least
 ``EngineConfig.degree_threshold``: eRJS or plain eRVS, no tables, no jump
-reservoir, staged only).  ``Sampler.fused_kind`` names the
+reservoir, staged only), and the Table 2 baseline systems ``its``
+(C-SAW), ``als`` (Skywalker), ``rvs_prefix`` (FlowWalker) and
+``rjs_maxreduce`` (NextDoor) through :class:`PaddedRowSampler` (kernels
+K9–K12, staged only).  ``Sampler.fused_kind`` names the
 fused-epoch regime (``kernels/megastep.FUSED_KINDS``) that reproduces a
 sampler bit for bit, or None when it has none and must run staged.
 
@@ -35,6 +38,7 @@ from repro_torch.core.ctxutil import degrees_of
 from repro_torch.core.precomp import PrecompTables, offset_nodes
 from repro_torch.core.types import WalkerState, wstate_rows
 from repro_torch.kernels.alias import alias_pick
+from repro_torch.kernels.baselines import BASELINE_SELECT_FNS
 from repro_torch.kernels.erjs import erjs_select
 from repro_torch.kernels.ervs import ervs_select
 from repro_torch.kernels.its import its_search
@@ -45,6 +49,10 @@ from repro_torch.kernels.prng import fold_in, random_bits, uniform_from_bits
 class SamplerCaps:
     needs_precomp: bool = False  # wants ITS tables for static programs
     needs_alias: bool = False  # wants the Vose alias tables as well
+    # reads whole rows as the reference's [W, pad] weight block (the plain
+    # versions build the block; the kernels read each walker's own row):
+    # the engine fills SamplerContext.pad only for such samplers
+    needs_padded_row: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +87,9 @@ class SamplerContext:
     compiled: fc.CompiledWorkload
     stats: object  # NodeStats
     config: object  # EngineConfig
+    # padded row width: a power of two holding every row (WalkEngine.pad)
+    # for a sampler whose caps name needs_padded_row, else 0
+    pad: int = 0
     precomp: Optional[PrecompTables] = None
 
     def bound_inputs(self, state: WalkerState) -> fc.BoundInputs:
@@ -388,11 +399,47 @@ class AliasPrecompSampler(_PrecompBase):
     kind = "alias"
 
 
+class PaddedRowSampler(Sampler):
+    """Adapter of the §2.2 baselines (ITS / ALS / prefix-RVS / max-reduce
+    RJS): each pays a full pass over the walker's row every step.
+    ``step_fn(graph, program, params, cur, prev, step, keys, pad=,
+    wstate=, **extra)`` is a wrapper of ``kernels/baselines.py``, run on
+    the compacted active lanes; ``extra_of_cfg`` maps keyword names to
+    functions of the engine config (e.g. ``trials_per_round=lambda cfg:
+    cfg.rjs_trials``).  The counters stay 0, as the reference counts."""
+
+    caps = SamplerCaps(needs_padded_row=True)
+
+    def __init__(self, name: str, step_fn: Callable, **extra_of_cfg):
+        self.name = name
+        self._step_fn = step_fn
+        self._extra_of_cfg = extra_of_cfg
+
+    def select(self, ctx, state, keys, *, active):
+        nxt = torch.full_like(state.cur, -1)
+        idx = _lanes(active)
+        if idx.numel():
+            extra = {k: f(ctx.config) for k, f in self._extra_of_cfg.items()}
+            nxt[idx] = self._step_fn(
+                ctx.graph, ctx.workload, ctx.params, state.cur[idx],
+                state.prev[idx], state.step[idx], keys[idx], pad=ctx.pad,
+                wstate=wstate_rows(state.wstate, idx), **extra)
+        z = _zero(state.cur)
+        return Selection(nxt, z, z, z, z)
+
+
 register_sampler(PartitionedSampler("adaptive", cost_model_policy,
                                     precomp_regime=True, jump_reservoir=True))
 register_sampler(ERVSSampler())
 register_sampler(ERVSJumpSampler())
 register_sampler(PartitionedSampler("erjs", always_policy))
+_BASELINE_CFG_KW = {
+    "rjs_maxreduce": dict(trials_per_round=lambda cfg: cfg.rjs_trials,
+                          max_rounds=lambda cfg: 4 * cfg.rjs_max_rounds),
+}
+for _name, _fn in BASELINE_SELECT_FNS.items():
+    register_sampler(PaddedRowSampler(_name, _fn,
+                                      **_BASELINE_CFG_KW.get(_name, {})))
 register_sampler(PartitionedSampler("random", random_policy))
 register_sampler(PartitionedSampler("degree", degree_policy))
 register_sampler(ITSPrecompSampler())

@@ -10,8 +10,8 @@ kernel launch builds, and :func:`build_all` builds ahead of time.
 A program without a hand-written device rule (or hook rule) runs a
 generated one (``kernels/rulegen.py``): its header, weight and hooks
 together, is written to ``_build/gen-<hash>/generated_rule.cuh`` and
-``ervs.cu``, ``erjs.cu`` and ``megastep.cu`` are built again with
-``-DREPRO_GENERATED_RULE`` against it
+``ervs.cu``, ``erjs.cu``, ``megastep.cu`` and ``baselines.cu`` are built
+again with ``-DREPRO_GENERATED_RULE`` against it
 (:data:`GENERATED_SOURCES`), into libraries whose name hashes the header
 with the sources and flags, so two programs never share one.
 
@@ -34,9 +34,10 @@ from repro_torch.kernels.rules import RuleStruct
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ervs.cu", "erjs.cu", "its.cu", "alias.cu", "megastep.cu",
-           "ervs_block.cu", "erjs_block.cu", "token_sample.cu")
-#: the sources a generated rule builds instances of (K1, K2, K4)
-GENERATED_SOURCES = ("ervs.cu", "erjs.cu", "megastep.cu")
+           "ervs_block.cu", "erjs_block.cu", "token_sample.cu",
+           "baselines.cu")
+#: the sources a generated rule builds instances of (K1, K2, K4, K9–K12)
+GENERATED_SOURCES = ("ervs.cu", "erjs.cu", "megastep.cu", "baselines.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
@@ -49,7 +50,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_epoch_rejection": 0, "fused_epoch_precomp_its": 0,
     "fused_epoch_precomp_alias": 0, "ervs_block_select": 0,
     "erjs_block_select": 0, "its_search_aligned": 0,
-    "alias_pick_aligned": 0, "token_sample": 0}
+    "alias_pick_aligned": 0, "token_sample": 0, "its_row": 0,
+    "rvs_prefix_row": 0, "als_row": 0, "row_max": 0}
 
 #: loaded libraries: by source stem, and by (stem, header) for the
 #: instances of a generated rule
@@ -170,6 +172,10 @@ _SIGNATURES = {
                     [_P] * 5 + [_I, _L, _I] + [_P] * 3)],
     "token_sample": [("repro_token_sample",
                       [_P, _P, _I, _I, _I, _F, _I] + [_P] * 5)],
+    "baselines": [("repro_baseline_rows",
+                   [_I] + [_P] * 4 + [_R] + [_P] * 6 + [_I, _L] + [_P] * 4),
+                  ("repro_row_max",
+                   [_P] * 4 + [_R] + [_P] * 5 + [_I, _L, _P, _P])],
 }
 
 

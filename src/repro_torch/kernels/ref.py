@@ -163,6 +163,30 @@ def xla_sum(w: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def xla_tree_sum(w: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``w`` [n, m] in XLA's CPU order for a width m that is a
+    power of two (the engine's ``pad``; XLA orders other widths
+    otherwise): a row of at most 32 weights is summed sequentially; a
+    longer one is cut into 32-weight windows, each summed sequentially,
+    and the window sums are summed the same way, level by level.  Equals
+    :func:`xla_sum` up to 1024 weights; zeros at a row's end change no
+    level's sums, so a shorter row may stand for its zero-padded one."""
+    n, m = w.shape
+    if m <= 32:
+        total = w[:, 0]
+        for j in range(1, m):
+            total = total + w[:, j]
+        return total
+    pad = -m % 32
+    if pad:
+        w = torch.cat([w, w.new_zeros(n, pad)], dim=1)
+    win = w.reshape(n, -1, 32)
+    part = win[:, :, 0]
+    for j in range(1, 32):
+        part = part + win[:, :, j]
+    return xla_tree_sum(part)
+
+
 def xla_cumsum(w: torch.Tensor) -> torch.Tensor:
     """Inclusive row prefix sums of ``w`` [n, m] in XLA's CPU order: the
     recursive scan with base 16 (m a multiple of 16 whose chunk counts

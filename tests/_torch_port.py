@@ -692,3 +692,117 @@ def its_aligned_model(cdf2d, row0, degs, totals, seeds):
             paths.append("sector" if n == 8 else "block")
         out[i] = min(lo, d - 1)
     return torch.from_numpy(out), paths
+
+
+#: keys whose scalar jax uniform (counter 0, minval 0) is the largest there
+#: is, 1 - 2^-23: ITS's target u * total then lies within an ulp or two of
+#: the total, where the prefixes past the row's end take part in the count
+TOP_BASELINE_KEYS = ((306217251, 1215394579), (2528959559, 2728799781),
+                     (846369703, 2509441180), (3229793556, 3076456588),
+                     (2406160195, 1509383560), (3556267319, 1022211501))
+#: entries of the star row of :func:`baseline_rows_graph`: its base-16
+#: scan has four levels (5,000 -> 313 -> 20 -> 2)
+BASELINE_STAR_LENGTH = 5_000
+
+
+def baseline_rows_graph(seed: int, nodes: int = 480, star: bool = True):
+    """Rows for the baseline samplers: (indptr, indices, h, labels) as
+    numpy.  ``nodes`` nodes of 1 to 24 sorted neighbours, h Pareto(1)
+    with a fifth of the weights 0 (plateaus in the prefix sums), labels
+    0..4; with ``star``, the last node's row has
+    :data:`BASELINE_STAR_LENGTH` entries over the other nodes (sorted,
+    repeats allowed), and node 0 has no edge."""
+    rng = np.random.default_rng(seed)
+    V = nodes + int(star)
+    deg = rng.integers(1, 25, V)
+    deg[0] = 0
+    if star:
+        deg[-1] = BASELINE_STAR_LENGTH
+    indptr = np.zeros(V + 1, np.int64)
+    indptr[1:] = np.cumsum(deg)
+    rows = [np.sort(rng.choice(V, d, replace=False)) if d <= 24
+            else np.sort(rng.integers(1, nodes, d)) for d in deg]
+    indices = np.concatenate(rows).astype(np.int32)
+    E = indices.size
+    h = (rng.pareto(1.0, E) * (rng.random(E) >= 0.2)).astype(np.float32)
+    labels = rng.integers(0, 5, E).astype(np.int32)
+    return indptr.astype(np.int32), indices, h, labels
+
+
+def baseline_walkers(indptr, indices, n: int, seed: int, window: int = 16):
+    """n walkers on the rows of :func:`baseline_rows_graph` (a tenth on the
+    last row, the star where there is one; a tenth just arrived from it;
+    the first six with :data:`TOP_BASELINE_KEYS`): (cur, prev, step,
+    raw keys [n, 2] uint32, visited rings [n, window] int32) as numpy."""
+    rng = np.random.default_rng(seed)
+    V = indptr.size - 1
+    cur = rng.integers(0, V, n)
+    cur[::10] = V - 1
+    prev = rng.integers(-1, V, n)
+    prev[1::10] = V - 1
+    step = rng.integers(0, 12, n)
+    keys = random_keys(n, seed)
+    keys[:len(TOP_BASELINE_KEYS)] = TOP_BASELINE_KEYS
+    ring = rng.integers(-1, V, (n, window)).astype(np.int32)
+    for i in range(0, n, 3):  # rings holding the walker's own neighbours
+        row = indices[indptr[cur[i]]:indptr[cur[i] + 1]][:window // 2]
+        ring[i, :row.size] = row
+    return cur, prev, step, keys, ring
+
+
+def its_row_model(w: np.ndarray, pad: int):
+    """K9's arithmetic on one row (``csrc/baselines.cuh``), in Python
+    float32: (the row's prefixes [n], the prefix at ``pad`` - 1, the
+    padded positions' groups [(value, positions)]).  The upper levels
+    hold the 16-chunk sums level by level; a prefix is its chunk's
+    sequential prefix plus the level above's prefix at chunk - 1; the
+    padded positions [n, pad) form one group of equal prefixes per level
+    they reach."""
+    f32 = np.float32
+    levs = [[f32(x) for x in w]]
+    while len(levs[-1]) > 16:
+        src = levs[-1]
+        levs.append([_seq_sum(src[c:c + 16]) for c in range(0, len(src), 16)])
+    K = len(levs) - 1
+    top = _seq_sum(levs[K])
+
+    def level(k):
+        return levs[k] if k <= K else [top]
+
+    def chunk_prefix(k, j):
+        lv = level(k)
+        c0 = j // 16 * 16
+        return f32(0) if c0 >= len(lv) else _seq_sum(lv[c0:min(j, len(lv) - 1)
+                                                        + 1])
+
+    def chain(k, j):
+        terms = [chunk_prefix(k, j)]
+        while j // 16 >= 1:
+            j, k = j // 16 - 1, k + 1
+            terms.append(chunk_prefix(k, j))
+        acc = f32(terms[-1] + f32(0))
+        for t in reversed(terms[:-1]):
+            acc = f32(t + acc)
+        return acc
+
+    n = len(w)
+    prefixes = [chain(0, j) for j in range(n)]
+    groups, his = [], []
+    lo, hi, k = n, pad - 1, 0
+    while lo <= hi:
+        a, b = lo, min(lo // 16 * 16 + 15, hi)
+        for kk in range(k - 1, -1, -1):
+            a, b = 16 * (a + 1), min(16 * (b + 1) + 15, his[kk])
+        groups.append((chain(k, lo), b - a + 1))
+        if hi // 16 - 1 < lo // 16:
+            break
+        his.append(hi)
+        lo, hi, k = lo // 16, hi // 16 - 1, k + 1
+    return prefixes, chain(0, pad - 1), groups
+
+
+def _seq_sum(xs):
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = np.float32(acc + x)
+    return acc
