@@ -37,7 +37,9 @@ Phases (any failure exits non-zero and prints no result line):
              engine per fused regime (methods ervs, erjs, its_precomp,
              alias_precomp, ``step_exec="fused"``) for deepwalk and for
              ppr_nibble (the hooked program).  Each engine builds its own
-             tables, and on the card the layouts its CUDA draws read
+             tables (phase 4's staged engines take their fused twins',
+             ``WalkEngine(..., precomp=...)``: the two alias builds took
+             ~37 s), and on the card the layouts its CUDA draws read
              (node records, fence and pair tables); node statistics are
              computed once per label count (the graph keeps them).  The
              layouts' build is timed again on a copy of the deepwalk
@@ -152,6 +154,26 @@ Phases (any failure exits non-zero and prints no result line):
              replacement) over 8 steps.  Each run must launch its kernels
              and emit only edges, and logs ``run()``'s split, its live
              walker-steps/s and its peak device memory.
+4e. interleaved, scheduler, aligned draws — deepwalk under
+             ``interleaved`` (K1's interleaved entry, a [V, 256] prefetch
+             carry) over every node and ``PAIR_STEPS`` must launch it,
+             never plain K1, and give phase 4's staged ``ervs`` run's paths
+             and telemetry bit for bit; ``scheduler()`` over node2vec
+             adaptive's queries in ``run()``'s order (one slot a query, 16
+             steps an epoch), every 97th query id killed before the second
+             epoch: the other paths equal phase 4's ``run()``, the killed
+             ones are prefixes of it, and the epochs' ``walker_steps`` sum
+             to the live total; ``walk_batch`` of every node on deepwalk
+             ``its_precomp``, fused and staged, equal (paths, per-step
+             counters) and equal to ``run()``; staged deepwalk
+             ``its_precomp`` / ``alias_precomp`` engines under
+             ``precomp_exec="aligned"``, built on the flat staged engines'
+             tables (``WalkEngine(..., precomp=...)``: no second Vose
+             build), must launch the aligned entries of K3 / K5 and give the
+             flat runs' paths and telemetry; each entry is then timed at
+             the engine's lanes after 8 steps and held bitwise against its
+             plain version there (rows ``its_search_aligned/deepwalk``,
+             ``alias_pick_aligned/deepwalk``).
 5. timing  — each kernel and its plain version on the lanes one main-path
              step hands it (the state after ``MID_STEP`` steps: 8, or 4
              for the short MetaPath and PPR-Nibble walks) under each
@@ -198,7 +220,18 @@ Phases (any failure exits non-zero and prints no result line):
              block of every lane would not fit on the card): up to one
              lane on each of the 64 largest rows among them and random
              lanes, 1,024 in all (ALS: the largest row and 3 random
-             lanes), and its plain ms are on that subset.
+             lanes), and its plain ms are on that subset.  K1's
+             interleaved entry on the plain reservoir lanes of node2vec
+             (the dist test), metapath (labels), visited_avoiding (the
+             ring) and the quickstart program (a generated rule) after
+             ``MID_STEP`` steps, every other lane hitting a carry built
+             for the check: the same choices as its plain version and as
+             plain K1, and the same carry rows below ``min(deg, 256)``;
+             then on deepwalk's interleaved main-path state after 8 steps
+             (its own carry, restored before each timed launch), timed on
+             every walker beside plain K1, held against plain K1 on all
+             and against its plain version on 4,096 of them (one on each
+             of the 64 largest rows, the rest at random).
 
 ``jump_threshold`` is lowered from the default 1024 to 8, the cost
 model's ``min_rjs_degree``: at uniform weights Eq. 11 sends every hub to
@@ -367,9 +400,10 @@ ITS_BLOCK_BYTES = 64.0
 # version (~10^11 edges a step for deepwalk's every walker), and the
 # walkers it holds there: up to K4_RESERVOIR_PLAIN_PER_ROW on each of the
 # OPS_HUB_LANES largest rows, the rest at random (every walker took ~190
-# s of the smoke's 1,200; the kernel's step is timed on every walker)
+# s of the smoke's 1,200; the kernel's step is timed on every walker; cut
+# from 65,536 when phase 4e came in)
 K4_RESERVOIR_PLAIN_EPOCH = 1
-K4_RESERVOIR_PLAIN_LANES = 65536
+K4_RESERVOIR_PLAIN_LANES = 16384
 K4_RESERVOIR_PLAIN_PER_ROW = 16
 K4_RESERVOIR_PLAIN_SEED = 17
 # phase 4b, the compiler: registry programs stripped of their declarations
@@ -3576,6 +3610,450 @@ def time_baselines(graph, starts, launches: dict, checks: dict,
     return rows
 
 
+# ----------------------- phase 4e: interleaved, scheduler, aligned draws
+# the interleaved sampler at full width (deepwalk over PAIR_STEPS, against
+# the staged ervs run of phase 4); the scheduler's surface on node2vec
+# adaptive (queries killed every KILL_EVERY-th id at the second epoch);
+# walk_batch fused and staged on deepwalk its_precomp; staged deepwalk
+# its_precomp / alias_precomp under precomp_exec="aligned" (the flat
+# engines' tables reused) against the flat runs
+INTERLEAVED_PROGRAM = "deepwalk"
+KILL_EVERY = 97
+SCHEDULER_PROGRAM = "node2vec"
+WALK_BATCH_KIND = "precomp_its"
+ALIGNED_KINDS = {"precomp_its": ("its", "its_search_aligned"),
+                 "precomp_alias": ("alias", "alias_pick_aligned")}
+# phase 5: K1 interleaved against its plain version on the plain reservoir
+# lanes of these programs' main-path state (a dist test, labels, a wstate
+# read, a generated rule), every other lane hitting the carry; on
+# deepwalk's interleaved main-path state, timed on every live walker and
+# held on up to INTERLEAVED_PLAIN_LANES of them (one on each of the
+# OPS_HUB_LANES largest rows, the rest drawn with INTERLEAVED_PLAIN_SEED)
+INTERLEAVED_CHECK = ("node2vec", "metapath", "visited_avoiding",
+                     GEN + QUICKSTART)
+INTERLEAVED_PLAIN_LANES = 4096
+INTERLEAVED_PLAIN_SEED = 18
+
+
+def interleaved_main(graph, ervs_res, steps: int):
+    """Phase 4e: deepwalk under ``interleaved`` at full width; its paths
+    and telemetry must equal phase 4's staged ``ervs`` run (``ervs_res``),
+    and it must launch K1's interleaved entry and never plain K1.
+    Returns (the engine, its K1 interleaved launches)."""
+    from repro_torch.core import EngineConfig, WalkEngine
+    from repro_torch.walks import make_workload
+
+    eng = WalkEngine(graph, make_workload(INTERLEAVED_PROGRAM),
+                     EngineConfig(method="interleaved"))
+    V, tile = graph.num_nodes, eng.config.tile
+    log(f"main [{INTERLEAVED_PROGRAM}/interleaved]: the carry of {V} slots "
+        f"x {tile} entries is {V * tile * 12 / 1e9:.2f} GB (nbr, h, label) "
+        f"and {V * 8 / 1e6:.1f} MB of tags")
+    counts, res = main_path(eng, f"{INTERLEAVED_PROGRAM}/interleaved", steps,
+                            ("ervs_interleaved_select",))
+    if counts["ervs_select"] or counts["ervs_jump_select"]:
+        fail("interleaved launched plain K1")
+    tele = ("frac_rjs", "frac_precomp", "frac_stale", "rjs_fallbacks",
+            "live_steps")
+    same = (res.paths == ervs_res.paths).all(axis=1)
+    log(f"main [{INTERLEAVED_PROGRAM}/interleaved]: paths equal the staged "
+        f"ervs run's on {same.mean():.6f} of queries; telemetry "
+        f"{[getattr(res, f) for f in tele]} / "
+        f"{[getattr(ervs_res, f) for f in tele]}")
+    if not same.all() or any(getattr(res, f) != getattr(ervs_res, f)
+                             for f in tele):
+        fail("interleaved differs from the staged ervs run")
+    return eng, counts["ervs_interleaved_select"]
+
+
+def scheduler_main(eng, run_res, steps: int) -> None:
+    """Phase 4e: ``eng.scheduler()`` over every query in ``run()``'s order
+    (start-degree, one slot a query, the default epoch length), killing
+    every ``KILL_EVERY``-th query id before the second epoch: the other
+    paths must equal ``run_res`` (phase 4's ``run()``), the killed ones
+    must be prefixes of it, and the epochs' ``walker_steps`` must sum to
+    the scheduler's live total."""
+    import numpy as np
+    import torch
+
+    V = eng.graph.num_nodes
+    starts = np.arange(V)
+    deg = eng.graph.degrees().cpu().numpy()
+    queue = np.argsort(deg[starts], kind="stable")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = eng.scheduler(num_steps=steps, slots=V, capacity=V)
+    s.admit(queue, starts[queue])
+    killed, walker_steps, epochs = np.zeros(0, np.int64), 0, 0
+    while s.busy:
+        if epochs == 1:
+            before = s.occupancy
+            killed = s.kill(np.arange(0, V, KILL_EVERY))
+            if s.occupancy != before - killed.size:
+                fail("scheduler: kill freed the wrong slots")
+        rep = s.run_epoch()
+        walker_steps += rep.walker_steps
+        epochs += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    keep = np.ones(V, bool)
+    keep[killed] = False
+    if not (s.paths[keep] == run_res.paths[keep]).all():
+        fail("scheduler: an unkilled path differs from run()'s")
+    p, r = s.paths[killed], run_res.paths[killed]
+    valid = p >= 0
+    if not ((p == r) | ~valid).all() or (np.diff(
+            valid.astype(np.int8), axis=1) > 0).any() \
+            or (valid.sum(axis=1) > 1 + s.T).any():
+        fail("scheduler: a killed path is not a prefix of run()'s")
+    if walker_steps != s.totals["live"] or s.occupancy or s.in_flight().size:
+        fail(f"scheduler: walker_steps sum {walker_steps} against live "
+             f"{s.totals['live']}, occupancy {s.occupancy} at the end")
+    log(f"scheduler [{SCHEDULER_PROGRAM}/adaptive]: {V} queries in run()'s "
+        f"order, {epochs} epochs of {s.T} steps in {dt:.2f} s; killed "
+        f"{killed.size} of {len(range(0, V, KILL_EVERY))} ids (every "
+        f"{KILL_EVERY}th; the rest had finished) before the second epoch: "
+        f"their paths are prefixes of run()'s ({int(valid.sum())} entries), "
+        f"the other {int(keep.sum())} equal run()'s; sum of walker_steps "
+        f"{walker_steps} = the live total (run(): {run_res.live_steps})")
+
+
+def walk_batch_check(fused_eng, staged_eng, steps: int, res) -> None:
+    """Phase 4e: ``walk_batch`` of every node, fused and staged: the same
+    paths and per-step counters, and the paths of phase 4's ``run()``
+    (``res``: query i starts at node i, as walker i does)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.prng import key_data
+
+    V = fused_eng.graph.num_nodes
+    out = {}
+    for eng in (fused_eng, staged_eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[eng.step_exec_resolved] = eng.walk_batch(
+            np.arange(V), key_data(eng.config.seed), steps)
+        torch.cuda.synchronize()
+        log(f"walk_batch [deepwalk/{eng.config.method}, "
+            f"{eng.step_exec_resolved}]: {V} walkers x {steps} steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+    (pf, sf), (ps, ss) = out["fused"], out["staged"]
+    same_stats = all(torch.equal(getattr(sf, f), getattr(ss, f))
+                     for f in ("live", "rjs_served", "fallbacks",
+                               "precomp_served", "stale_served"))
+    if not torch.equal(pf, ps) or not same_stats:
+        fail("walk_batch: fused differs from staged")
+    if not np.array_equal(pf.cpu().numpy(), res.paths[:, 1:]):
+        fail("walk_batch: paths differ from run()'s")
+    log(f"walk_batch [deepwalk/{fused_eng.config.method}]: fused equals "
+        f"staged (paths and per-step counters, {int(sf.live.sum())} live "
+        f"steps) and run()'s paths")
+
+
+def aligned_main(graph, pname: str, kind: str, flat_eng, flat_res,
+                 steps: int, reps: int):
+    """Phase 4e: a staged engine under ``precomp_exec="aligned"`` that
+    reuses ``flat_eng``'s tables (its setter's path lays out the aligned
+    streams); its paths and telemetry must equal the flat staged run
+    (``flat_res``) and it must launch the aligned entry.  Then the entry
+    is timed and held bitwise against its plain version on the engine's
+    lanes after ``MID_STEP`` steps.  Returns (launches, the row)."""
+    import torch
+    from repro_torch.core import EngineConfig, WalkEngine
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.walks import make_workload
+
+    draw, name = ALIGNED_KINDS[kind]
+    t0 = time.perf_counter()
+    eng = WalkEngine(graph, make_workload(pname), EngineConfig(
+        method=flat_eng.config.method, step_exec="staged",
+        precomp_exec="aligned"), precomp=flat_eng.precomp)
+    torch.cuda.synchronize()
+    log(f"engine {pname}/{eng.config.method} (staged, aligned draws): "
+        f"{time.perf_counter() - t0:.1f} s with the flat engine's tables "
+        f"and the aligned streams laid out")
+    counts, res = main_path(eng, f"{pname}/{eng.config.method}/aligned",
+                            steps, (name,))
+    tele = ("frac_rjs", "frac_precomp", "frac_stale", "rjs_fallbacks",
+            "live_steps")
+    if not (res.paths == flat_res.paths).all() or any(
+            getattr(res, f) != getattr(flat_res, f) for f in tele):
+        fail(f"{pname}/{eng.config.method}: aligned draws differ from flat")
+    log(f"main [{pname}/{eng.config.method}]: aligned draws equal the flat "
+        f"staged run, paths and telemetry")
+    t = eng.precomp
+    state = mid_walk_state(eng, MID_STEP.get(pname, 8))
+    keys = state.stream_keys()
+    live = (state.alive & (state.step < WALK_STEPS)
+            & (degrees_of(eng.graph, state.cur) > 0) & t.row_valid(state.cur))
+    idx = live.nonzero().squeeze(1)
+    cur = state.cur[idx]
+    r0, tot = t.arow0[cur].contiguous(), t.total[cur].contiguous()
+    dg = degrees_of(eng.graph, cur).to(torch.int32)
+    seeds = keys[idx].contiguous()
+    if draw == "its":
+        streams = (t.cdf2d,)
+        run = lambda: ops.its_search(t.cdf2d, r0, dg, tot, seeds)
+        plain = lambda: ref.its_search_ref(t.cdf2d, r0, dg, tot, seeds)
+    else:
+        streams = (t.prob2d, t.alias2d)
+        run = lambda: ops.alias_pick(t.prob2d, t.alias2d, r0, dg, tot, seeds)
+        plain = lambda: ref.alias_pick_ref(t.prob2d, t.alias2d, r0, dg, tot,
+                                           seeds)
+    got = run()
+    want, plain_ms = cuda_once(plain)
+    if not torch.equal(got, want):
+        fail(f"{name} [{pname}] at main-path shapes: differs from its plain "
+             f"version on {int((got != want).sum())} of {idx.numel()} lanes")
+    ms, cold = cuda_ms(run, reps), cold_ms(run, reps)
+    drawn = aligned_draw_work(draw, streams, r0, dg, tot, seeds)
+    b_ms, b_by = pipe_bound(*drawn.work)
+    row = dict(lanes=int(idx.numel()), step=MID_STEP.get(pname, 8), ms=ms,
+               cold_ms=cold, plain_ms=plain_ms, max_abs_err=0, mismatches=0,
+               bound_ms=b_ms, bound_by=b_by, checked=int(idx.numel()),
+               bound_note=draw_note(draw, "aligned"))
+    log(f"time {name} [{pname}]: {idx.numel()} lanes of the engine at step "
+        f"{row['step']}, kernel {ms:.4f} ms (cold {cold:.4f} ms), plain "
+        f"{plain_ms:.4f} ms (on every lane, bitwise equal), bound "
+        f"{b_ms:.4f} ms ({b_by}), {drawn.sectors / idx.numel():.4f} "
+        f"sectors a walker")
+    del state, eng
+    build.reset_launches()
+    return counts[name], row
+
+
+def interleaved_lanes(graph, prog, cur, tile: int):
+    """A carry over the walkers at ``cur`` (slot i = walker i) one step
+    behind: every other walker's tag is its node with the node's first
+    tile (a hit), the others' is the next node (a miss)."""
+    import torch
+    from repro_torch.core import ervs as ervs_mod
+    from repro_torch.core.samplers import PrefetchTile
+
+    n, dev = cur.numel(), cur.device
+    carry = PrefetchTile(
+        node=torch.empty(n, dtype=torch.int64, device=dev),
+        nbr=torch.empty((n, tile), dtype=torch.int32, device=dev),
+        h=torch.empty((n, tile), dtype=torch.float32, device=dev),
+        label=torch.empty((n, tile), dtype=torch.int32, device=dev))
+    hit = torch.arange(n, device=dev) % 2 == 0
+    tag = torch.where(hit, cur, (cur + 1) % graph.num_nodes)
+    ervs_mod.fill_tile0(carry, graph, prog, torch.arange(n, device=dev), tag,
+                        tile)
+    return carry
+
+
+def copy_carry(c):
+    from repro_torch.core.samplers import PrefetchTile
+
+    return PrefetchTile(node=c.node.clone(), nbr=c.nbr.clone(),
+                        h=c.h.clone(), label=c.label.clone())
+
+
+def restore_carry(dst, src) -> None:
+    for f in ("node", "nbr", "h", "label"):
+        getattr(dst, f).copy_(getattr(src, f))
+
+
+def carry_rows_differ(graph, prog, carry, slots, chosen, tile: int) -> int:
+    """Carry rows ``slots`` whose tag is not ``chosen`` or whose first
+    ``min(deg, tile)`` entries differ from the chosen node's first tile as
+    the plain version fills it (offsets past that are unspecified on the
+    card), in blocks of 2^16 rows."""
+    import torch
+    from repro_torch.core import ervs as ervs_mod
+
+    bad = 0
+    for part in torch.arange(slots.numel(), device=slots.device).split(
+            1 << 16):
+        rows, node = slots[part], chosen[part]
+        nbr, h, label, mask = ervs_mod.tile0_payload(graph, prog, node, tile)
+        wrong = carry.node[rows] != node
+        for leaf, want in ((carry.nbr, nbr), (carry.h, h),
+                           (carry.label, label)):
+            row = leaf[rows]
+            wrong |= (mask & (row != want.to(row.dtype))).any(dim=1)
+        bad += int(wrong.sum())
+    return bad
+
+
+def timed_with_carry(launch, carry, saved, reps: int):
+    """(result, mean ms) of ``launch()`` over ``reps`` runs after one
+    warm-up run, ``carry`` restored from ``saved`` before each (outside
+    the CUDA events around the launch): K1 interleaved rewrites it."""
+    import torch
+
+    marks, out = [], None
+    for _ in range(reps + 1):
+        restore_carry(carry, saved)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = launch()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return out, sum(s.elapsed_time(e) for s, e in marks[1:]) / reps
+
+
+def interleaved_work(g, prev, d, nxt, pname: str, weighted: bool,
+                     needs_labels: bool, ring: float, tile: int):
+    """(bytes, integer-ALU instructions, instructions) of K1's interleaved
+    entry: plain K1's work (``plain_scan_work``: tile 0's entries are read
+    from the carry on a hit, the same bytes as from the row) and per
+    walker its slot, its tag read and written (24 B) and the chosen
+    node's first ``min(deg, tile)`` entries read from the graph (the
+    neighbour, h when weighted, the label when the program reads labels)
+    and written into the carry (12 B an entry)."""
+    import torch
+    from repro_torch.core.ctxutil import degrees_of
+
+    nbytes, alu, instr = plain_scan_work(g, prev, d, pname, weighted, ring,
+                                         tile)
+    copied = float(torch.clamp(degrees_of(g, nxt), max=tile).sum())
+    per_entry = (4.0 + (4.0 if weighted else 0.0)
+                 + (4.0 if needs_labels else 0.0) + 12.0)
+    return nbytes + 24.0 * d.numel() + copied * per_entry, alu, instr
+
+
+def interleaved_note(tile: int) -> str:
+    return (f"plain K1's count (tile 0's entries from the carry on a hit, "
+            f"the same bytes) and per walker its slot and tag (24 B) and "
+            f"the chosen node's first min(deg, {tile}) entries read from "
+            f"the graph and written into the carry (12 B an entry); "
+            + pipe_note(4.0))
+
+
+def check_interleaved_lanes(adaptive: dict, gen_adaptive: dict,
+                            reps: int) -> None:
+    """Phase 5: K1's interleaved entry against its plain version
+    (``core.ervs.interleaved_step`` on the card) on the plain reservoir
+    lanes of each program of ``INTERLEAVED_CHECK`` after ``MID_STEP``
+    steps, every other lane hitting the carry: the same choices (near-ties
+    excepted, of which ``SCAN_NEAR_TIES`` are allowed) and the same carry
+    rows below ``min(deg, tile)``; and both against plain K1
+    (``ervs_select``), bitwise."""
+    import torch
+    from repro_torch.core import ervs as ervs_mod
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.kernels.ervs import (ervs_interleaved_select,
+                                          ervs_select)
+
+    for pname in INTERLEAVED_CHECK:
+        eng = (gen_adaptive if pname.startswith(GEN) else adaptive)[pname]
+        g, prog, params = eng.graph, eng.workload, eng.sampler_ctx.params
+        tile = eng.config.tile
+        split = main_path_split(eng, mid_step(pname))
+        cur, prev, step, idx, ws = lanes_of(split.state, split.lo)
+        keys = split.keys[idx].contiguous()
+        n = idx.numel()
+        slots = torch.arange(n, device=cur.device)
+        carry = interleaved_lanes(g, prog, cur, tile)
+        saved = copy_carry(carry)
+        got, ms = timed_with_carry(lambda: ervs_interleaved_select(
+            g, prog, params, cur, prev, step, keys, carry, slots, tile=tile,
+            wstate=ws), carry, saved, reps)
+        k1 = ervs_select(g, prog, params, cur, prev, step, keys, tile=tile,
+                         wstate=ws)
+        plain_carry = copy_carry(saved)
+        want, plain_ms = cuda_once(lambda: ervs_mod.interleaved_step(
+            g, prog, params, cur, prev, step, keys, plain_carry, slots,
+            tile=tile, wstate=ws))
+        n_bad, unexplained = k1_mismatches(g, prog, params, cur, prev, keys,
+                                           got, want, tile, False, step, ws)
+        rows_bad = carry_rows_differ(g, prog, carry, slots, got, tile)
+        hits = int((saved.node == cur).sum())
+        if not torch.equal(got, k1):
+            fail(f"ervs_interleaved_select [{pname}]: differs from plain K1 "
+                 f"on {int((got != k1).sum())} of {n} lanes")
+        if unexplained or n_bad > SCAN_NEAR_TIES or rows_bad:
+            fail(f"ervs_interleaved_select [{pname}]: {n_bad} differences "
+                 f"from the plain version ({unexplained} not near-ties), "
+                 f"{rows_bad} carry rows differ")
+        k1_ms = cuda_ms(lambda: ervs_select(g, prog, params, cur, prev,
+                                            step, keys, tile=tile,
+                                            wstate=ws), reps)
+        edges = float(degrees_of(g, cur).sum())
+        log(f"check ervs_interleaved_select [{pname}]: {n} lanes at step "
+            f"{mid_step(pname)} ({hits} hit the carry), {edges:.0f} edges: "
+            f"0 differences from the plain version and from plain K1, carry "
+            f"rows equal below min(deg, {tile}); kernel {ms:.4f} ms, plain "
+            f"K1 {k1_ms:.4f} ms, plain {plain_ms:.4f} ms")
+        del carry, saved, plain_carry, split
+
+
+def time_interleaved_main(eng, reps: int) -> dict:
+    """Phase 5: K1's interleaved entry on deepwalk's interleaved main-path
+    state after ``MID_STEP`` steps (its own carry), timed on every live
+    walker with the carry restored before each launch, held against its
+    plain version on up to ``INTERLEAVED_PLAIN_LANES`` of them (hubs and
+    random) and against plain K1 on all; its row."""
+    import torch
+    from repro_torch.core import ervs as ervs_mod
+    from repro_torch.core.ctxutil import degrees_of
+    from repro_torch.core.samplers import PrefetchTile
+    from repro_torch.kernels.ervs import (ervs_interleaved_select,
+                                          ervs_select, kernel_rule)
+
+    g, prog, params = eng.graph, eng.workload, eng.sampler_ctx.params
+    tile = eng.config.tile
+    pname = INTERLEAVED_PROGRAM
+    step_at = mid_step(pname)
+    state = mid_walk_state(eng, step_at, PAIR_STEPS)
+    live = (state.alive & (state.step < PAIR_STEPS)
+            & (degrees_of(g, state.cur) > 0))
+    cur, prev, step, idx, ws = lanes_of(state, live)
+    keys = state.stream_keys()[idx].contiguous()
+    carry = state.carry
+    saved = copy_carry(carry)
+    got, ms = timed_with_carry(lambda: ervs_interleaved_select(
+        g, prog, params, cur, prev, step, keys, carry, idx, tile=tile,
+        wstate=ws), carry, saved, reps)
+    k1 = ervs_select(g, prog, params, cur, prev, step, keys, tile=tile,
+                     wstate=ws)
+    k1_ms = cuda_ms(lambda: ervs_select(g, prog, params, cur, prev, step,
+                                        keys, tile=tile, wstate=ws), reps)
+    if not torch.equal(got, k1):
+        fail(f"ervs_interleaved_select [{pname}] at main-path shapes: "
+             f"differs from plain K1 on {int((got != k1).sum())} lanes")
+    d = degrees_of(g, cur).to(torch.float64)
+    chk = hub_and_random_walkers(cur, d, INTERLEAVED_PLAIN_LANES,
+                                 INTERLEAVED_PLAIN_SEED)
+    slots = idx[chk]
+    sub = PrefetchTile(node=saved.node[slots], nbr=saved.nbr[slots],
+                       h=saved.h[slots], label=saved.label[slots])
+    c_cur, c_prev, c_step, c_keys = (x[chk].contiguous()
+                                     for x in (cur, prev, step, keys))
+    want, plain_ms = cuda_once(lambda: ervs_mod.interleaved_step(
+        g, prog, params, c_cur, c_prev, c_step, c_keys, sub,
+        torch.arange(chk.numel(), device=chk.device), tile=tile))
+    n_bad, unexplained = k1_mismatches(g, prog, params, c_cur, c_prev,
+                                       c_keys, got[chk], want, tile, False,
+                                       c_step)
+    rows_bad = carry_rows_differ(g, prog, carry, slots, got[chk], tile)
+    if unexplained or n_bad > SCAN_NEAR_TIES or rows_bad:
+        fail(f"ervs_interleaved_select [{pname}] at main-path shapes: "
+             f"{n_bad} differences from the plain version ({unexplained} "
+             f"not near-ties), {rows_bad} carry rows differ")
+    hits = int((saved.node[idx] == cur).sum())
+    weighted = kernel_rule(prog, params).weighted
+    b_ms, b_by = pipe_bound(*interleaved_work(
+        g, prev, d, got, pname, weighted, prog.needs_labels, 0.0, tile))
+    log(f"time ervs_interleaved_select [{pname}]: {idx.numel()} lanes at "
+        f"step {step_at} ({hits} hit the carry), kernel {ms:.4f} ms (carry "
+        f"restored before each launch), plain K1 on the same lanes "
+        f"{k1_ms:.4f} ms, plain {plain_ms:.4f} ms (on {chk.numel()} lanes), "
+        f"bound {b_ms:.4f} ms ({b_by}); 0 differences from plain K1, "
+        f"{n_bad} from the plain version, carry rows equal")
+    row = dict(lanes=int(idx.numel()), step=step_at, ms=ms,
+               plain_ms=plain_ms, max_abs_err=0, mismatches=n_bad,
+               bound_ms=b_ms, bound_by=b_by, checked=int(chk.numel()),
+               hits=hits, k1_ms=k1_ms, bound_note=interleaved_note(tile))
+    del state, carry, saved, sub
+    return row
+
+
 SOURCES = {
     "ervs_block_select": ("src/repro_torch/kernels/csrc/ervs_block.cu",
                           "src/repro/kernels/ervs_kernel.py:109"),
@@ -3589,6 +4067,9 @@ SOURCES = {
                     "src/repro/kernels/megastep_kernel.py:185"),
     "ervs_jump_select": ("src/repro_torch/kernels/csrc/ervs.cu",
                          "src/repro/kernels/megastep_kernel.py:185"),
+    # no TPU kernel: the reference's interleaved sampler is jnp
+    "ervs_interleaved_select": ("src/repro_torch/kernels/csrc/ervs.cu",
+                                "src/repro/core/samplers.py:620"),
     "erjs_select": ("src/repro_torch/kernels/csrc/erjs.cu",
                     "src/repro/kernels/megastep_kernel.py:225"),
     "its_search": ("src/repro_torch/kernels/csrc/its.cu",
@@ -3797,17 +4278,29 @@ def main() -> int:
             args.steps, SELECTOR_STEPS[method]),
             ("ervs_select", "erjs_select"))
         del eng
+    slice_rows, ervs_res = {}, None
     for pname in FUSED_PROGRAMS:
         steps = min(args.steps, PAIR_STEPS)
         for kind, method in FUSED_METHODS.items():
             t0 = time.perf_counter()
             staged = WalkEngine(graph, make_workload(pname), EngineConfig(
-                method=method, step_exec="staged"))
+                method=method, step_exec="staged"),
+                precomp=fused[pname][kind].precomp)
             torch.cuda.synchronize()
             log(f"engine {pname}/{method} (staged): "
-                f"{time.perf_counter() - t0:.1f} s")
+                f"{time.perf_counter() - t0:.1f} s (the fused engine's "
+                f"tables)")
             n, staged_counts, res, end = fused_main_path(
                 fused[pname][kind], staged, pname, steps)
+            if pname == INTERLEAVED_PROGRAM and kind == "reservoir":
+                ervs_res = res  # phase 4e's interleaved run must equal it
+            if pname == "deepwalk" and kind == WALK_BATCH_KIND:
+                walk_batch_check(fused[pname][kind], staged, steps, res)
+            if pname == "deepwalk" and kind in ALIGNED_KINDS:
+                name = ALIGNED_KINDS[kind][1]
+                launches[name, pname], slice_rows[name, pname] = \
+                    aligned_main(graph, pname, kind, staged, res, steps,
+                                 args.reps)
             if pname == "deepwalk" and kind in COMPILER_FUSED:
                 declared[kind] = res
             if pname == HOOKED_FUSED:
@@ -3818,6 +4311,15 @@ def main() -> int:
             if kind == "precomp_alias":
                 launches["alias_pick", pname] = staged_counts["alias_pick"]
             del staged
+
+    # 4e. the interleaved sampler at full width against the staged ervs
+    # run, then the scheduler's surface against node2vec's run()
+    inter_eng, n = interleaved_main(graph, ervs_res,
+                                    min(args.steps, PAIR_STEPS))
+    launches["ervs_interleaved_select", INTERLEAVED_PROGRAM] = n
+    del ervs_res
+    scheduler_main(adaptive[SCHEDULER_PROGRAM], declared[SCHEDULER_PROGRAM],
+                   min(args.steps, WALK_STEPS))
 
     # 4b. the compiler: stripped twins and the quickstart program
     gen_launches, gen_launched = compiler_main(args, declared, gen_adaptive,
@@ -3831,9 +4333,15 @@ def main() -> int:
     baseline_launches, baseline_q = baselines_main(
         graph, args.baseline_queries, min(args.steps, BASELINE_STEPS))
 
-    # 5. K1 jump across tiles, then kernel times at main-path shapes
+    # 5. K1 jump across tiles and K1 interleaved on four programs' lanes,
+    # then kernel times at main-path shapes
     check_jump_tiles(adaptive, seed=16)
+    check_interleaved_lanes(adaptive, gen_adaptive, args.reps)
     rows = time_kernels(adaptive, launched, args.reps)
+    rows["ervs_interleaved_select", INTERLEAVED_PROGRAM] = \
+        time_interleaved_main(inter_eng, args.reps)
+    del inter_eng
+    rows.update(slice_rows)
     for pname in FUSED_PROGRAMS:
         rows.update(time_fused(fused[pname], pname))
     rows.update(time_kernels(gen_adaptive, gen_launched, args.reps))
@@ -3870,7 +4378,8 @@ def main() -> int:
             **{k: r[k] for k in ("steps", "epoch16_ms", "epoch16_bound_ms",
                                  "cold_ms", "checked", "bound_note",
                                  "rejected", "pending", "fallbacks",
-                                 "mean_used", "fallback_launches")
+                                 "mean_used", "fallback_launches", "hits",
+                                 "k1_ms")
                if k in r}})
     for (name, label), n in ops_launches.items():
         r = ops_rows[name, label]

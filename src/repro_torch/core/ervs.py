@@ -5,6 +5,9 @@ paper §3.2, Alg. 1 + Fig. 4): the plain PyTorch versions of kernel K1.
 * :func:`ervs_jump_step` — the A-ExpJ jump variant: each of the ``tile``
   lanes runs sequential A-ExpJ over its strided subsequence
   {l, l+tile, …} and the lanes are arg-maxed at the end.
+* :func:`interleaved_step` — :func:`ervs_step` with tile 0 read from the
+  ``interleaved`` sampler's prefetch carry, which it refills with the
+  chosen node's first tile.
 
 Both keep the reference's logical tiling, which feeds the RNG counters:
 offset ``j`` sits in tile ``t = j // tile`` at lane ``j % tile``, and its
@@ -20,8 +23,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.ctxutil import degrees_of, eval_weights, tile_ctx
-from repro_torch.core.types import WalkProgram, wstate_rows
-from repro_torch.graphs.csr import CSRGraph
+from repro_torch.core.types import EdgeCtx, WalkProgram, wstate_rows
+from repro_torch.graphs.csr import CSRGraph, dist_code
 from repro_torch.kernels.prng import (fold_in, threefry2x32, uniform,
                                       uniform_from_bits)
 from repro_torch.kernels.ref import fma32, xla_exp, xla_log
@@ -67,11 +70,24 @@ def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
     W = cur.shape[0]
     if active is None:
         active = torch.ones(W, dtype=torch.bool, device=cur.device)
-    deg = degrees_of(graph, cur)
-    needed, top = _trip(deg, active, tile)
     best_lk = torch.full((W,), NEG_INF, device=cur.device)
     best_nbr = torch.full((W,), -1, dtype=torch.int64, device=cur.device)
-    t = 0
+    scan_tiles(graph, program, params, cur, prev, step, keys, tile, active,
+               wstate, 0, best_lk, best_nbr)
+    return torch.where(active, best_nbr, -2)
+
+
+def scan_tiles(graph: CSRGraph, program: WalkProgram, params, cur, prev,
+               step, keys: torch.Tensor, tile: int, active: torch.Tensor,
+               wstate, first: int, best_lk: torch.Tensor,
+               best_nbr: torch.Tensor) -> None:
+    """Fold tiles ``first``, ``first + 1``, ... of each active walker's
+    row into its running best (key, neighbour), in place: a tile's
+    maximum replaces the best only when strictly greater, so the first
+    offset holding the maximum wins."""
+    deg = degrees_of(graph, cur)
+    needed, top = _trip(deg, active, tile)
+    t = first
     while t < needed:
         reach = (active & (deg > t * tile)).nonzero().squeeze(1)
         k = max(1, min(needed - t, _BLOCK_ELEMS // (reach.numel() * tile)))
@@ -96,7 +112,104 @@ def ervs_step(graph: CSRGraph, program: WalkProgram, params, cur, prev, step,
             best_nbr[lanes] = torch.where(upd, ctx.nbr.gather(1, b)[:, 0],
                                           best_nbr[lanes])
         t += k
-    return torch.where(active, best_nbr, -2)
+
+
+def tile0_payload(graph: CSRGraph, program: WalkProgram, node: torch.Tensor,
+                  tile: int):
+    """(nbr, h, label, mask), each [n, tile], of offsets [0, tile) of the
+    rows of ``node`` (-1: no row): the values ``ctxutil.tile_ctx`` gives
+    (nbr -1, h 0 and label -1 or 0 where masked; h 1 where unmasked for an
+    unweighted program, label 0 for one that reads no labels)."""
+    deg = degrees_of(graph, node)
+    start = graph.row_starts(node.clamp_min(0))
+    offs = torch.arange(tile, dtype=torch.int64, device=node.device)[None, :]
+    mask = offs < deg[:, None]
+    pos = (start[:, None] + offs).clamp(0, max(graph.num_edges - 1, 0))
+    nbr = torch.where(mask, graph.indices[pos].long(), -1)
+    if program.weighted:
+        h = torch.where(mask, graph.h[pos], 0.0)
+    else:
+        h = mask.to(torch.float32)
+    if program.needs_labels:
+        label = torch.where(mask, graph.labels[pos].long(), -1)
+    else:
+        label = torch.zeros_like(nbr)
+    return nbr, h, label, mask
+
+
+def fill_tile0(carry, graph: CSRGraph, program: WalkProgram,
+               slots: torch.Tensor, node: torch.Tensor, tile: int) -> None:
+    """Write the first tile of the rows of ``node`` (:func:`tile0_payload`,
+    fills included) into the carry rows ``slots`` and tag them with
+    ``node``, in blocks of at most ``_BLOCK_ELEMS`` entries."""
+    carry.node[slots] = node
+    for part in torch.arange(slots.numel(), device=slots.device).split(
+            max(1, _BLOCK_ELEMS // tile)):
+        nbr, h, label, _ = tile0_payload(graph, program, node[part], tile)
+        rows = slots[part]
+        carry.nbr[rows] = nbr.to(carry.nbr.dtype)
+        carry.h[rows] = h
+        carry.label[rows] = label.to(carry.label.dtype)
+
+
+def interleaved_step(graph: CSRGraph, program: WalkProgram, params, cur,
+                     prev, step, keys: torch.Tensor, carry,
+                     lanes: torch.Tensor, tile: int = 256,
+                     wstate=None) -> torch.Tensor:
+    """Plain version of K1's interleaved entry: one eRVS step of the n
+    walkers in slots ``lanes`` of ``carry`` (a ``PrefetchTile`` of every
+    slot), with ``cur``, ``prev``, ``step``, ``keys`` and ``wstate`` their
+    rows.  Returns next nodes [n] (int64, -1 when no neighbour has a
+    positive weight), bitwise :func:`ervs_step`'s, and rewrites ``carry``
+    in place.
+
+    The reference's order (``InterleavedSampler.select``): tile 0 from
+    the carry on a hit lane (its tag equals ``cur``) and from the graph on
+    a miss lane, the same uniforms and keys as the plain scan; tiles 1, ...
+    as :func:`ervs_step` scans them; then each walker's carry row holds
+    the first tile of the node it moved to, tagged with that node (-1
+    where it did not move), and every other slot gets tag -1 and the
+    masked fills.  Tile 0 runs in blocks of at most ``_BLOCK_ELEMS``
+    entries, as :func:`ervs_step`'s tiles do."""
+    n, dev = cur.shape[0], cur.device
+    best_lk = torch.full((n,), NEG_INF, device=dev)
+    best_nbr = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for part in torch.arange(n, device=dev).split(
+            max(1, _BLOCK_ELEMS // tile)):
+        c, p, slot = cur[part], prev[part], lanes[part]
+        node = carry.node[slot]
+        hit = ((node == c) & (node >= 0))[:, None]
+        nbr_g, h_g, label_g, mask0 = tile0_payload(graph, program, c, tile)
+        nbr0 = torch.where(hit, carry.nbr[slot].long(), nbr_g)
+        h0 = torch.where(hit, carry.h[slot], h_g)
+        label0 = torch.where(hit, carry.label[slot].long(), label_g)
+        if program.needs_dist:
+            dist0 = dist_code(graph, p[:, None], nbr0.clamp_min(0))
+        else:
+            dist0 = torch.ones_like(nbr0)
+        wide = lambda x: x[:, None].expand(part.numel(), tile)
+        ctx0 = EdgeCtx(h=h0, label=label0, dist=dist0, nbr=nbr0,
+                       deg_cur=wide(degrees_of(graph, c)),
+                       deg_prev=wide(degrees_of(graph, p)), cur=wide(c),
+                       prev=wide(p), step=wide(step[part]))
+        w0 = eval_weights(program, params, ctx0, mask0,
+                          wstate_rows(wstate, part))
+        u0 = _tile_uniforms(keys[part], 0, tile)
+        lk0 = torch.where(mask0, _log_keys(u0, w0), NEG_INF)
+        b0 = lk0.argmax(dim=1, keepdim=True)
+        blk_lk = lk0.gather(1, b0)[:, 0]
+        best_lk[part] = blk_lk
+        best_nbr[part] = torch.where(blk_lk > NEG_INF,
+                                     nbr0.gather(1, b0)[:, 0], -1)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    scan_tiles(graph, program, params, cur, prev, step, keys, tile, active,
+               wstate, 1, best_lk, best_nbr)
+    # the new carry: the chosen node's first tile, the fills elsewhere
+    W = carry.node.shape[0]
+    tag = torch.full((W,), -1, dtype=torch.int64, device=dev)
+    tag[lanes] = best_nbr
+    fill_tile0(carry, graph, program, torch.arange(W, device=dev), tag, tile)
+    return best_nbr
 
 
 def ervs_jump_step(graph: CSRGraph, program: WalkProgram, params, cur, prev,

@@ -21,9 +21,11 @@ over 4.8M rows.  The alias tables come from the reference's two-stack
 Vose loop per row (``_vose_row``); :func:`vose_build` runs that loop in
 lockstep over every row at once with numpy, with the same float64
 ``q[lg] -= 1.0 - q[sm]`` updates and the same stack order, and finishes
-the few longest rows one by one on Python floats.  The rebuild queue and
-``rebuild_rows`` wait for a later slice; the ``invalid`` bitmap is carried
-in from outside (``interop.tables_from_arrays``).
+the few longest rows one by one on Python floats.
+:meth:`PrecompTables.with_aligned` adds the tile-aligned streams the
+aligned draw entries read.  The rebuild queue and ``rebuild_rows`` wait
+for a later slice; the ``invalid`` bitmap is carried in from outside
+(``interop.tables_from_arrays``).
 """
 from __future__ import annotations
 
@@ -70,6 +72,26 @@ class PrecompTables:
     alias_off: Optional[torch.Tensor]
     alias_prob: Optional[torch.Tensor]
     invalid: torch.Tensor  # [V] bool — rows that must take the dynamic path
+    # the tile-aligned [R, 128] streams of cdf, alias_prob and alias_off
+    # (kernels/ops.py align_rows geometry) and each node's first 128-row
+    # ([V] int32): what the aligned draw entries read under
+    # EngineConfig.precomp_exec="aligned" (with_aligned attaches them);
+    # prob2d and alias2d stay None for tables without alias arrays
+    cdf2d: Optional[torch.Tensor] = None
+    prob2d: Optional[torch.Tensor] = None
+    alias2d: Optional[torch.Tensor] = None
+    arow0: Optional[torch.Tensor] = None
+
+    def with_aligned(self, indptr) -> "PrecompTables":
+        """These tables with the aligned streams attached, rebuilt from the
+        flat arrays (the geometry is a function of ``indptr`` only); a new
+        object, which keeps no layout cached on this one."""
+        from repro_torch.kernels import ops as kernel_ops
+
+        cdf2d, prob2d, alias2d, row0, _ = kernel_ops.aligned_precomp_tables(
+            self, indptr)
+        return dataclasses.replace(self, cdf2d=cdf2d, prob2d=prob2d,
+                                   alias2d=alias2d, arow0=row0)
 
     def row_valid(self, v: torch.Tensor) -> torch.Tensor:
         """Per lane: may this node be served from the tables?"""

@@ -18,8 +18,19 @@ jitted ``lax.scan``), or "fused", the whole epoch in one launch of K4
 program) cell has a fused regime.  A program's per-walker state rides in
 ``WalkerState.wstate``: each refill installs the query's
 ``init_walker_state``, each step commits ``on_step`` on the lanes that
-moved and folds ``should_stop`` into ``alive``.  ``kill``, ``walk_batch``,
-multi-device runs and graph updates wait for later slices.
+moved and folds ``should_stop`` into ``alive``.  A sampler's cross-step
+state rides in ``WalkerState.carry`` (the ``interleaved`` sampler's
+prefetch tile), which refills leave alone.
+
+Beside ``run``, the scheduler is a library surface of its own:
+``WalkEngine.scheduler()`` returns a long-lived :class:`EpochScheduler`
+(``admit``, ``run_epoch``, ``kill``, ``occupancy``, ``in_flight``) that
+serves every epoch from the table view pinned at its construction, or
+re-pins each epoch with ``track_tables=True``; ``WalkEngine.walk_batch``
+runs one fully occupied batch with no host scheduling.  Table draws go
+through the flat or the aligned entries of K3 / K5
+(``EngineConfig.precomp_exec``).  Multi-device runs, the mutation and
+epoch clocks and graph updates wait for later slices.
 """
 from __future__ import annotations
 
@@ -36,8 +47,9 @@ from repro_torch.core import precomp as precomp_mod
 from repro_torch.core.cost_model import CostModel
 from repro_torch.core.ctxutil import (apply_hooks, degrees_of, eval_weights,
                                       tile_ctx, transition_ctx)
-from repro_torch.core.samplers import (SamplerContext, available_samplers,
-                                       get_sampler)
+from repro_torch.core.samplers import (PRECOMP_EXEC_CHOICES, SamplerContext,
+                                       available_samplers, get_sampler,
+                                       resolve_precomp_exec)
 from repro_torch.core.types import (StepStats, WalkerState, WalkProgram,
                                     from_workload)
 from repro_torch.device import resolve_device
@@ -80,6 +92,11 @@ class EngineConfig:
     device: str = "cuda"
     # step execution path: see STEP_EXEC_CHOICES
     step_exec: str = "auto"
+    # execution path of the staged table draws: "flat" (the engine
+    # entries of K3 / K5), "aligned" (their aligned entries on the
+    # tile-aligned streams), "auto" = flat; the same bits either way
+    # (samplers.PRECOMP_EXEC_CHOICES)
+    precomp_exec: str = "auto"
 
     def __post_init__(self):
         if self.method not in available_samplers():
@@ -89,6 +106,11 @@ class EngineConfig:
                 f"{', '.join(available_samplers())}")
         if self.tile < 1:
             raise ValueError(f"tile must be positive, got {self.tile}")
+        if self.precomp_exec not in PRECOMP_EXEC_CHOICES:
+            raise ValueError(
+                f"precomp_exec {self.precomp_exec!r} does not name a "
+                f"table-draw execution path; valid choices: "
+                f"{', '.join(PRECOMP_EXEC_CHOICES)}")
         if self.step_exec not in STEP_EXEC_CHOICES:
             raise ValueError(
                 f"step_exec {self.step_exec!r} does not name a step "
@@ -121,23 +143,35 @@ class EpochReport:
     occupied: int  # slots occupied while the epoch ran
     stats: dict  # the epoch's StepStats.host_totals sums
 
+    @property
+    def walker_steps(self) -> int:
+        """Live walker-steps this epoch served (the ``live`` sum): pad
+        slots, finished walkers and dead lanes never count."""
+        return int(self.stats.get("live", 0))
+
 
 class EpochScheduler:
     """Host-side loop over the engine's epochs: a slot pool, refills at
-    epoch boundaries (:meth:`admit`), and path harvesting.
+    epoch boundaries (:meth:`admit`), lanes retired on demand
+    (:meth:`kill`), and path harvesting.
 
     Query ids pick the RNG streams (``fold_in(key, qid)``) and the rows of
     :attr:`paths`, so a query's path does not depend on its slot or on
-    when it was admitted."""
+    when it was admitted.  Every epoch is served from the table view
+    pinned at construction (:meth:`adopt_tables`), not from whatever
+    ``engine.precomp`` holds later; ``track_tables=True`` re-pins it at
+    the start of every epoch."""
 
     def __init__(self, engine: "WalkEngine", num_steps: int,
                  key: torch.Tensor, slots: int, epoch_len: int,
-                 capacity: int = 0):
+                 capacity: int = 0, track_tables: bool = False):
         self.engine = engine
         self.num_steps = int(num_steps)
         self.key = key
         self.W = int(slots)
         self.T = int(epoch_len)
+        self.adopt_tables()
+        self.track_tables = bool(track_tables)
         self.paths = np.full((int(capacity), self.num_steps + 1), -1,
                              np.int32)
         self.slot_query = np.full(self.W, -1, np.int64)
@@ -153,6 +187,7 @@ class EpochScheduler:
                             device=dev),
             alive=torch.zeros(self.W, dtype=torch.bool, device=dev),
             rng=torch.zeros((self.W, 2), dtype=torch.int64, device=dev),
+            carry=engine.sampler.init_carry(engine.sampler_ctx, self.W),
             # placeholder rows until a refill installs the query's own
             wstate=engine.workload.init_wstate_batch(
                 torch.zeros(self.W, dtype=torch.int64, device=dev)))
@@ -161,9 +196,38 @@ class EpochScheduler:
     def busy(self) -> bool:
         return bool((self.slot_query >= 0).any())
 
+    @property
+    def occupancy(self) -> int:
+        """Slots currently serving a query."""
+        return int((self.slot_query >= 0).sum())
+
+    def in_flight(self) -> np.ndarray:
+        """Query ids currently occupying slots, in slot order."""
+        return self.slot_query[self.slot_query >= 0].copy()
+
     def free_slots(self) -> np.ndarray:
         """Admittable slot indices, in slot order."""
         return np.nonzero(self.slot_query < 0)[0]
+
+    def adopt_tables(self) -> None:
+        """Pin this scheduler's view on the engine's current precomp
+        tables, graph, node statistics and padded row width; every epoch
+        is served from the view pinned last.  Called at construction and,
+        under ``track_tables=True``, at the start of every epoch."""
+        ctx = self.engine.sampler_ctx
+        self.tables = ctx.precomp
+        self.graph_view = ctx.graph
+        self.stats_view = ctx.stats
+        self.pad_view = ctx.pad
+
+    def reset_sampler_carry(self) -> None:
+        """Re-initialise the sampler's cross-step carry (the interleaved
+        sampler's prefetch tile).  Bit-neutral while the graph is
+        unchanged: a cold tile gathers the same values again."""
+        eng = self.engine
+        self.state = dataclasses.replace(
+            self.state, carry=eng.sampler.init_carry(eng.sampler_ctx,
+                                                     self.W))
 
     def _ensure_capacity(self, n: int) -> None:
         if n <= self.paths.shape[0]:
@@ -204,17 +268,38 @@ class EpochScheduler:
             for leaf, new in zip(s.wstate,
                                  self.engine.workload.init_wstate_batch(qids)):
                 leaf[idx] = new
+        # the sampler's carry survives refills: a sampler validates it per
+        # lane (a prefetch tile's tag is its node, so a new occupant misses)
         self.seconds["admit"] += time.perf_counter() - t0
         return int(qs.size)
 
+    def kill(self, query_ids) -> np.ndarray:
+        """Retire the lanes serving ``query_ids`` now: clear their
+        ``alive`` bits (the walker emits nothing further and stops
+        counting toward telemetry, as after a ``should_stop``) and free
+        their slots for the next admission.  Harvested path prefixes stay
+        in :attr:`paths`.  Returns the query ids found in flight."""
+        qs = np.asarray(query_ids, np.int64).reshape(-1)
+        idx_np = np.nonzero(np.isin(self.slot_query, qs))[0]
+        killed = self.slot_query[idx_np].copy()
+        if idx_np.size:
+            idx = torch.from_numpy(idx_np).to(self.engine.device)
+            self.state.alive[idx] = False
+            self.slot_query[idx_np] = -1
+        return killed
+
     def run_epoch(self) -> EpochReport:
-        """Run ``T`` steps, harvest the emitted path entries, and report
-        which queries completed."""
+        """Run ``T`` steps against the pinned table view (re-pinned first
+        under ``track_tables``), harvest the emitted path entries, and
+        report which queries completed."""
         t0 = time.perf_counter()
+        if self.track_tables:
+            self.adopt_tables()
         step0 = self.state.step.cpu().numpy()  # waits for the refills
         t1 = time.perf_counter()
         self.state, emitted, stats = self.engine.run_epoch_fn(
-            self.state, epoch_len=self.T, num_steps=self.num_steps)
+            self.state, self.tables, self.graph_view, self.stats_view,
+            epoch_len=self.T, num_steps=self.num_steps, pad=self.pad_view)
         t2 = time.perf_counter()
         emitted = emitted.cpu().numpy()  # [W, T]
         step1 = self.state.step.cpu().numpy()
@@ -248,10 +333,13 @@ class EpochScheduler:
 
 class WalkEngine:
     """End-to-end dynamic walk executor for one (graph, walk program) on
-    ``config.device`` ("cuda" by default)."""
+    ``config.device`` ("cuda" by default).  ``precomp``: tables already
+    baked for this graph and program (another engine's), used in place of
+    a build and laid out as the ``precomp`` setter lays them out."""
 
     def __init__(self, graph: CSRGraph, workload: WalkProgram,
-                 config: Optional[EngineConfig] = None):
+                 config: Optional[EngineConfig] = None,
+                 precomp: Optional[precomp_mod.PrecompTables] = None):
         self.config = config or EngineConfig()
         self.device = resolve_device(self.config.device)
         self.graph = graph.to(self.device)
@@ -274,14 +362,15 @@ class WalkEngine:
                         and fc.is_static(workload))
         self._fused_kind = self._plan_fused_kind(will_precomp)
         params = workload.params()
+        if will_precomp and precomp is None:
+            precomp = precomp_mod.build_tables(
+                self.graph, workload, params,
+                alias=self.sampler.caps.needs_alias)
         self.sampler_ctx = SamplerContext(
             graph=self.graph, workload=workload, params=params,
             compiled=self.compiled, stats=self.stats, config=self.config,
             pad=self.pad if self.sampler.caps.needs_padded_row else 0,
-            precomp=(precomp_mod.build_tables(
-                self.graph, workload, params,
-                alias=self.sampler.caps.needs_alias)
-                if will_precomp else None))
+            precomp=self._with_streams(precomp) if will_precomp else None)
         self._build_draw_layouts(self.sampler_ctx.precomp)
         self._fused_epoch_fn = (self._build_fused_epoch()
                                 if self._fused_kind else None)
@@ -300,9 +389,18 @@ class WalkEngine:
         if self.sampler_ctx.precomp is None:
             raise ValueError(f"{self.workload.name} under "
                              f"{self.config.method!r} draws from no tables")
+        tables = self._with_streams(tables)
         self._build_draw_layouts(tables)
         self.sampler_ctx = dataclasses.replace(self.sampler_ctx,
                                                precomp=tables)
+
+    def _with_streams(self, tables):
+        """``tables``, with the aligned streams attached when the table
+        draws resolve to the aligned entries and they lack them."""
+        if (resolve_precomp_exec(self.config.precomp_exec) == "aligned"
+                and tables.arow0 is None):
+            return tables.with_aligned(self.graph.indptr)
+        return tables
 
     def _build_draw_layouts(self, tables) -> None:
         """On the card, build the table layouts the CUDA draws read (the
@@ -378,10 +476,12 @@ class WalkEngine:
         self._fused_bmax = (self._bake_bmax()
                             if self._fused_kind == "rejection" else None)
 
-    def step(self, state: WalkerState, num_steps: int
+    def step(self, state: WalkerState, num_steps: int, ctx=None
              ) -> Tuple[WalkerState, torch.Tensor, StepStats]:
-        """One walk step of every slot: (new state, emitted [W], stats)."""
-        ctx = self.sampler_ctx
+        """One walk step of every slot: (new state, emitted [W], stats);
+        ``ctx`` is the sampler context to step against (default the
+        engine's own)."""
+        ctx = ctx or self.sampler_ctx
         deg = degrees_of(ctx.graph, state.cur)
         wants = state.alive & (state.step < num_steps)
         live = wants & (deg > 0)
@@ -402,36 +502,55 @@ class WalkEngine:
             # a lane that wanted to step but could not has dead-ended; a
             # lane whose program said stop is equally finished
             alive=state.alive & ~(wants & ~stepped) & ~stop,
-            rng=state.rng, wstate=wstate)
+            rng=state.rng,
+            carry=sel.carry if sel.carry is not None else state.carry,
+            wstate=wstate)
         stats = StepStats(live=live.sum(), rjs_served=sel.rjs_served,
                           fallbacks=sel.fallbacks,
                           precomp_served=sel.precomp_served,
                           stale_served=sel.stale_served)
         return new_state, torch.where(stepped, nxt, -1), stats
 
-    def run_epoch_fn(self, state: WalkerState, *, epoch_len: int,
-                     num_steps: int):
-        """``epoch_len`` steps: (state', emitted [W, T], summed stats), by
-        one K4 launch on the fused path or the step loop on the staged
-        one."""
+    def run_epoch_fn(self, state: WalkerState, tables=None, graph=None,
+                     stats=None, *, epoch_len: int, num_steps: int,
+                     pad: Optional[int] = None):
+        """``epoch_len`` steps against explicit table, graph, statistics
+        and pad views (default: the engine's own): (state', emitted
+        [W, T], the epoch's summed stats as a dict of host ints), by one
+        K4 launch on the fused path or the step loop on the staged one."""
+        state, emitted, per_step = self.epoch_steps(
+            state, tables, graph, stats, epoch_len=epoch_len,
+            num_steps=num_steps, pad=pad)
         names = [f.name for f in dataclasses.fields(StepStats)]
+        sums = torch.stack([getattr(per_step, n).sum() for n in names])
+        return state, emitted, dict(zip(names, sums.cpu().tolist()))
+
+    def epoch_steps(self, state: WalkerState, tables=None, graph=None,
+                    stats=None, *, epoch_len: int, num_steps: int,
+                    pad: Optional[int] = None):
+        """:meth:`run_epoch_fn` with the stats per step: (state', emitted
+        [W, T], :class:`StepStats` of [T] counters)."""
+        base = self.sampler_ctx
+        tables = base.precomp if tables is None else tables
         if self._fused_epoch_fn is not None:
             state, emitted, flags = self._fused_epoch_fn(
                 state, epoch_len=epoch_len, num_steps=num_steps,
-                bmax=self._fused_bmax, tables=self.precomp)
-            st = StepStats.from_flag_bits(flags)
-            sums = torch.stack([getattr(st, n).sum() for n in names])
-            return state, emitted, dict(zip(names, sums.cpu().tolist()))
-        emitted = []
-        sums = None
+                bmax=self._fused_bmax, tables=tables)
+            return state, emitted, StepStats.from_flag_bits(flags)
+        ctx = dataclasses.replace(
+            base, precomp=tables, graph=base.graph if graph is None else graph,
+            stats=base.stats if stats is None else stats,
+            pad=base.pad if pad is None else pad)
+        names = [f.name for f in dataclasses.fields(StepStats)]
+        emitted, per_step = [], []
         for _ in range(epoch_len):
-            state, out, st = self.step(state, num_steps)
+            state, out, st = self.step(state, num_steps, ctx)
             emitted.append(out.to(torch.int32))
-            vals = torch.stack([getattr(st, n).to(torch.int64)
-                                for n in names])
-            sums = vals if sums is None else sums + vals
-        totals = dict(zip(names, sums.cpu().tolist()))
-        return state, torch.stack(emitted, dim=1), totals
+            per_step.append(torch.stack([getattr(st, n).to(torch.int64)
+                                         for n in names]))
+        per_step = torch.stack(per_step, dim=1)  # [fields, T]
+        return state, torch.stack(emitted, dim=1), StepStats(
+            *per_step.unbind(0))
 
     def run(self, starts, num_steps: Optional[int] = None,
             key: Optional[torch.Tensor] = None, batch: Optional[int] = None,
@@ -482,6 +601,52 @@ class WalkEngine:
             frac_precomp=sched.totals["precomp_served"] / max(live, 1),
             frac_stale=sched.totals["stale_served"] / max(live, 1),
             seconds={"setup": setup, **sched.seconds})
+
+    def scheduler(self, num_steps: Optional[int] = None,
+                  key: Optional[torch.Tensor] = None, slots: int = 64,
+                  epoch_len: Optional[int] = None, capacity: int = 0,
+                  track_tables: bool = False) -> EpochScheduler:
+        """A long-lived :class:`EpochScheduler` over this engine: what
+        ``run`` drives to completion, exposed so a serving loop can admit
+        queries at epoch boundaries, read completions per epoch and kill
+        lanes, with the same per-query paths as ``run``.  ``key`` is raw
+        key data ([2] int64, default ``key_data(seed)``); the epoch length
+        defaults to ``config.epoch_len`` or ``min(num_steps, 16)``.
+        ``track_tables=True`` re-adopts the engine's tables every epoch
+        instead of serving from the view pinned here."""
+        num_steps = self.workload.walk_len if num_steps is None else num_steps
+        if num_steps <= 0:
+            raise ValueError(f"num_steps must be positive, got {num_steps}")
+        if slots <= 0:
+            raise ValueError(f"slots must be positive, got {slots}")
+        key = key_data(self.config.seed) if key is None else key
+        T = int(epoch_len or self.config.epoch_len
+                or min(num_steps, DEFAULT_EPOCH_LEN))
+        T = max(1, min(T, num_steps))
+        return EpochScheduler(self, num_steps=num_steps, key=key,
+                              slots=int(slots), epoch_len=T,
+                              capacity=capacity, track_tables=track_tables)
+
+    def walk_batch(self, starts, key: torch.Tensor, num_steps: int
+                   ) -> Tuple[torch.Tensor, StepStats]:
+        """One fully occupied batch, no host scheduling: walker i serves
+        query i (stream ``fold_in(key, i)``, program state
+        ``init_walker_state(i)``, the sampler's initial carry).  Returns
+        (paths [W, num_steps] int32 on the engine's device, -1 where a
+        walker did not step; :class:`StepStats` of [num_steps]
+        counters)."""
+        if num_steps <= 0:
+            raise ValueError(f"num_steps must be positive, got {num_steps}")
+        starts = torch.as_tensor(np.asarray(starts), dtype=torch.int64,
+                                 device=self.device)
+        W = starts.shape[0]
+        state = WalkerState.create(
+            starts, key, wstate=self.workload.init_wstate_batch(
+                torch.arange(W, dtype=torch.int64, device=self.device)))
+        state.carry = self.sampler.init_carry(self.sampler_ctx, W)
+        _, emitted, stats = self.epoch_steps(state, epoch_len=num_steps,
+                                             num_steps=num_steps)
+        return emitted, stats
 
 
 def exact_probs(graph: CSRGraph, workload: WalkProgram, params, v: int,

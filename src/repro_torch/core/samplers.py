@@ -10,7 +10,9 @@ registers ``adaptive``, ``ervs``, ``ervs_jump``, ``erjs``, ``its_precomp``,
 reservoir, staged only), and the Table 2 baseline systems ``its``
 (C-SAW), ``als`` (Skywalker), ``rvs_prefix`` (FlowWalker) and
 ``rjs_maxreduce`` (NextDoor) through :class:`PaddedRowSampler` (kernels
-K9–K12, staged only).  ``Sampler.fused_kind`` names the
+K9–K12, staged only), and ``interleaved`` (:class:`InterleavedSampler`:
+eRVS with a cross-step prefetch of the next node's first tile, K1's
+interleaved entry, staged only).  ``Sampler.fused_kind`` names the
 fused-epoch regime (``kernels/megastep.FUSED_KINDS``) that reproduces a
 sampler bit for bit, or None when it has none and must run staged.
 
@@ -29,18 +31,20 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import flexi_compiler as fc
+from repro_torch.core import precomp as precomp_mod
 from repro_torch.core.ctxutil import degrees_of
 from repro_torch.core.precomp import PrecompTables, offset_nodes
 from repro_torch.core.types import WalkerState, wstate_rows
 from repro_torch.kernels.alias import alias_pick
 from repro_torch.kernels.baselines import BASELINE_SELECT_FNS
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.erjs import erjs_select
-from repro_torch.kernels.ervs import ervs_select
+from repro_torch.kernels.ervs import ervs_interleaved_select, ervs_select
 from repro_torch.kernels.its import its_search
 from repro_torch.kernels.prng import fold_in, random_bits, uniform_from_bits
 
@@ -64,13 +68,16 @@ class Estimates:
 @dataclasses.dataclass
 class Selection:
     """Result of one ``select``: next nodes [W] (-1 = dead end; inactive
-    lanes junk) and the regime counters over active lanes."""
+    lanes junk), the regime counters over active lanes, and the sampler's
+    cross-step carry, which the engine stores in ``WalkerState.carry``
+    for the next step (None: carries nothing)."""
 
     next_nodes: torch.Tensor
     rjs_served: torch.Tensor
     fallbacks: torch.Tensor
     precomp_served: torch.Tensor
     stale_served: torch.Tensor
+    carry: Any = None
 
 
 def _zero(like: torch.Tensor) -> torch.Tensor:
@@ -122,6 +129,14 @@ class Sampler(abc.ABC):
                keys: torch.Tensor, *, active: torch.Tensor) -> Selection:
         """Next nodes for the ``active`` lanes; ``keys`` [W, 2] are the
         per-walker, per-step keys."""
+
+    def init_carry(self, ctx: SamplerContext, num_slots: int) -> Any:
+        """Initial value of the sampler's cross-step carry
+        (``WalkerState.carry``) for ``num_slots`` slots; a sampler that
+        pipelines across steps (``interleaved``) overrides it, the default
+        carries nothing.  Every leaf of a carry keeps the slot dimension
+        first."""
+        return None
 
     def fused_kind(self, *, usable: bool, has_precomp: bool
                    ) -> Optional[str]:
@@ -333,20 +348,65 @@ class PartitionedSampler(Sampler):
             stale_served=(part.stale_pre & (nxt >= 0)).sum())
 
 
+# Execution paths of the table draws (EngineConfig.precomp_exec), the
+# reference's choices under the port's names: "flat" (the reference's
+# "jnp") draws through the engine entries of K3 / K5 on the flat [E]
+# tables and their node records; "aligned" (the reference's "pallas")
+# through the aligned entries (``kernels/ops.py`` ``its_search`` /
+# ``alias_pick``) on the tile-aligned [R, 128] streams
+# (``PrecompTables.with_aligned``); "auto" resolves to "flat".  Both draw
+# from the same Threefry (key, counter, salt) triples, so the choice never
+# changes an output bit.
+PRECOMP_EXEC_CHOICES = ("auto", "flat", "aligned")
+
+
+def resolve_precomp_exec(choice: str) -> str:
+    """``auto`` → "flat", the entries every engine has run on the card."""
+    return "flat" if choice == "auto" else choice
+
+
 def precomp_table_select(ctx: SamplerContext, state: WalkerState,
                          keys: torch.Tensor, active: torch.Tensor, *,
                          kind: str) -> torch.Tensor:
     """Next nodes [W] for the ``active`` lanes from the baked tables
-    (``kind``: "its", kernel K3, or "alias", kernel K5); -1 elsewhere and
-    for empty or zero-total rows."""
+    (``kind``: "its", kernel K3, or "alias", kernel K5), through the entry
+    ``EngineConfig.precomp_exec`` resolves to; -1 elsewhere and for empty
+    or zero-total rows.  Under "aligned" a missing aligned stream raises
+    (it never falls back to the flat entries)."""
     nxt = torch.full_like(state.cur, -1)
+    tables = ctx.precomp
+    aligned = resolve_precomp_exec(ctx.config.precomp_exec) == "aligned"
+    if aligned:
+        needed = (("arow0", "cdf2d") if kind == "its"
+                  else ("arow0", "prob2d", "alias2d"))
+        missing = [f for f in needed if getattr(tables, f) is None]
+        if missing:
+            raise RuntimeError(
+                f"precomp_exec resolved to 'aligned' for kind={kind!r} but "
+                f"the aligned table stream(s) {missing} are absent. "
+                f"Re-attach via PrecompTables.with_aligned(indptr) (the "
+                f"engine's precomp setter does), or run with "
+                f"precomp_exec='flat'.")
     idx = _lanes(active)
     if not idx.numel():
         return nxt
     cur = state.cur[idx]
+    if aligned:
+        deg = degrees_of(ctx.graph, cur).to(torch.int32)
+        seeds = precomp_mod.threefry_seeds(keys[idx]).contiguous()
+        row0 = tables.arow0[cur]
+        totals = tables.total[cur]
+        if kind == "its":
+            off = kernel_ops.its_search(tables.cdf2d, row0, deg, totals,
+                                        seeds)
+        else:
+            off = kernel_ops.alias_pick(tables.prob2d, tables.alias2d, row0,
+                                        deg, totals, seeds)
+        nxt[idx] = offset_nodes(ctx.graph, cur, off.long())
+        return nxt
     draw = its_search if kind == "its" else alias_pick
     nxt[idx] = offset_nodes(ctx.graph, cur,
-                            draw(ctx.graph, ctx.precomp, cur, keys[idx]))
+                            draw(ctx.graph, tables, cur, keys[idx]))
     return nxt
 
 
@@ -428,6 +488,70 @@ class PaddedRowSampler(Sampler):
         return Selection(nxt, z, z, z, z)
 
 
+@dataclasses.dataclass
+class PrefetchTile:
+    """The ``interleaved`` sampler's cross-step carry: the first neighbour
+    tile of the node each slot is about to occupy, gathered by the step
+    that chose it.  Every leaf leads with the slot dimension.
+
+    ``node`` [W] int64 is the node the row was gathered for (-1: none);
+    ``nbr`` / ``h`` / ``label`` [W, tile] (int32 / float32 / int32, the
+    graph's own dtypes, which K1 reads) hold its offsets [0, tile) as the
+    program reads them (h 1 for an unweighted program, label 0 for one
+    without labels).  On the card only the first ``min(deg(node), tile)``
+    entries of a row are written: the rest are unspecified, and nothing
+    reads them (tile 0's mask is ``offset < deg``).  The plain version
+    writes the reference's fills there (nbr -1, h 0, label -1 or 0), so
+    whole arrays compare on the CPU."""
+
+    node: torch.Tensor
+    nbr: torch.Tensor
+    h: torch.Tensor
+    label: torch.Tensor
+
+
+class InterleavedSampler(Sampler):
+    """``interleaved`` — the ThunderRW-style gather-move-update pipeline:
+    plain eRVS, bit for bit (the same per-tile uniforms and log-key
+    arg-max), with tile 0 of a walker's row read from the prefetch that
+    the previous step gathered (:class:`PrefetchTile`, in
+    ``WalkerState.carry``), and this step's chosen node's first tile
+    gathered behind the move.
+
+    Correctness never rests on the prefetch: a lane whose carry tag is
+    not its current node (first step, refill, dead end) reads the graph,
+    and a tile gathered for node v is valid for any lane at v because the
+    graph does not change within a run.  Kernel K1's interleaved entry
+    (``kernels/ervs.py`` ``ervs_interleaved_select``) runs it on the card.
+    No fused regime reproduces it: it always runs staged."""
+
+    name = "interleaved"
+
+    def init_carry(self, ctx, num_slots):
+        tile, dev = ctx.config.tile, ctx.graph.device
+        return PrefetchTile(
+            node=torch.full((num_slots,), -1, dtype=torch.int64, device=dev),
+            nbr=torch.full((num_slots, tile), -1, dtype=torch.int32,
+                           device=dev),
+            h=torch.zeros((num_slots, tile), dtype=torch.float32,
+                          device=dev),
+            label=torch.zeros((num_slots, tile), dtype=torch.int32,
+                              device=dev))
+
+    def select(self, ctx, state, keys, *, active):
+        carry = state.carry
+        if carry is None:  # nothing prefetched: every lane misses
+            carry = self.init_carry(ctx, state.cur.shape[0])
+        nxt = torch.full_like(state.cur, -1)
+        idx = _lanes(active)
+        nxt[idx] = ervs_interleaved_select(
+            ctx.graph, ctx.workload, ctx.params, state.cur[idx],
+            state.prev[idx], state.step[idx], keys[idx], carry, idx,
+            tile=ctx.config.tile, wstate=wstate_rows(state.wstate, idx))
+        z = _zero(state.cur)
+        return Selection(nxt, z, z, z, z, carry=carry)
+
+
 register_sampler(PartitionedSampler("adaptive", cost_model_policy,
                                     precomp_regime=True, jump_reservoir=True))
 register_sampler(ERVSSampler())
@@ -444,3 +568,4 @@ register_sampler(PartitionedSampler("random", random_policy))
 register_sampler(PartitionedSampler("degree", degree_policy))
 register_sampler(ITSPrecompSampler())
 register_sampler(AliasPrecompSampler())
+register_sampler(InterleavedSampler())

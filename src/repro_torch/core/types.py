@@ -190,6 +190,17 @@ class WalkerState:
     per-query stream ``fold_in(key, query_id)``; the per-step key folds in
     ``step`` (:meth:`stream_keys`), so a query's draws do not depend on its
     slot or epoch.
+
+    ``carry`` is sampler-owned cross-step state (the ``interleaved``
+    sampler's prefetched neighbour tile, ``samplers.PrefetchTile``), None
+    for samplers that carry nothing:
+
+    * it never changes a lane's distribution, only where the sampler
+      reads its data from;
+    * refills do not reset it (unlike ``wstate``): a sampler validates it
+      per lane (the prefetch tile records the node it was gathered for,
+      and a lane now elsewhere reads the graph);
+    * every leaf keeps the slot dimension first.
     """
 
     cur: torch.Tensor  # [W] int64 current node
@@ -197,6 +208,8 @@ class WalkerState:
     step: torch.Tensor  # [W] int64 steps taken by the current occupant
     alive: torch.Tensor  # [W] bool
     rng: torch.Tensor  # [W, 2] int64 raw per-query key data (uint32 values)
+    #: sampler-owned cross-step state (see above; None: carries nothing)
+    carry: Any = None
     #: program-owned state (None: stateless); advanced by ``on_step`` on
     #: lanes that moved, reset per query on refill
     wstate: WState = None

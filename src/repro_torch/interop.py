@@ -3,7 +3,8 @@ arrays (this module imports nothing of the reference: the caller passes
 ``np.asarray`` of each field).
 
 Used by the tests to feed the reference and the port the same graph,
-statistics, tables, walker state and model parameters.
+statistics, tables, walker state (the sampler carry included) and model
+parameters.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.precomp import PrecompTables
+from repro_torch.core.samplers import PrefetchTile
 from repro_torch.core.types import WalkerState, WalkProgram
 from repro_torch.graphs.csr import CSRGraph, NodeStats
 from repro_torch.models import DecoderLM, ModelConfig, segment_plan
@@ -53,15 +55,27 @@ def tables_from_arrays(cdf, total, invalid, device="cpu", *, alias_off=None,
                          invalid=_t(invalid, torch.bool, device))
 
 
-def state_from_arrays(cur, prev, step, alive, rng,
-                      device="cpu") -> WalkerState:
-    """``rng`` is the reference's raw uint32 key data [W, 2]."""
+def state_from_arrays(cur, prev, step, alive, rng, device="cpu",
+                      carry=None) -> WalkerState:
+    """``rng`` is the reference's raw uint32 key data [W, 2]; ``carry``, a
+    sampler carry already in the port's form (:func:`carry_from_arrays`),
+    or None."""
     return WalkerState(cur=_t(cur, torch.int64, device),
                        prev=_t(prev, torch.int64, device),
                        step=_t(step, torch.int64, device),
                        alive=_t(alive, torch.bool, device),
                        rng=_t(np.asarray(rng, np.uint32).astype(np.int64),
-                              torch.int64, device))
+                              torch.int64, device), carry=carry)
+
+
+def carry_from_arrays(node, nbr, h, label, device="cpu") -> PrefetchTile:
+    """The reference's ``PrefetchTile`` (the ``interleaved`` sampler's
+    carry), its four leaves as numpy arrays, as the port's: ``node`` int64,
+    ``nbr`` / ``h`` / ``label`` int32 / float32 / int32."""
+    return PrefetchTile(node=_t(node, torch.int64, device),
+                        nbr=_t(nbr, torch.int32, device),
+                        h=_t(h, torch.float32, device),
+                        label=_t(label, torch.int32, device))
 
 
 def keys_from_arrays(key_data, device="cpu") -> torch.Tensor:

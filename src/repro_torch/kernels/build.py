@@ -45,7 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: launches of each kernel since the last :func:`reset_launches`; every
 #: wrapper adds one right after its kernel launched, and nowhere else
 LAUNCHES: Dict[str, int] = {
-    "ervs_select": 0, "ervs_jump_select": 0, "erjs_select": 0,
+    "ervs_select": 0, "ervs_jump_select": 0,
+    "ervs_interleaved_select": 0, "erjs_select": 0,
     "its_search": 0, "alias_pick": 0, "fused_epoch_reservoir": 0,
     "fused_epoch_rejection": 0, "fused_epoch_precomp_its": 0,
     "fused_epoch_precomp_alias": 0, "ervs_block_select": 0,
@@ -152,7 +153,10 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 _R = ctypes.POINTER(RuleStruct)
 _SIGNATURES = {
     "ervs": [("repro_ervs_select",
-              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I, _P, _P, _P])],
+              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I, _I, _P, _P, _P]),
+             ("repro_ervs_interleaved_select",
+              [_P, _P, _P, _P, _R] + [_P] * 6 + [_I, _I] + [_P] * 5
+              + [_I, _P, _P])],
     "erjs": [("repro_erjs_select",
               [_P, _P, _P, _P, _R] + [_P] * 7 + [_I, _I, _I] + [_P] * 5)],
     "its": [("repro_its_search", [_P, _P, _P, _L, _P, _P, _I, _P, _P]),

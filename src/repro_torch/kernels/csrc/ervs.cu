@@ -5,7 +5,11 @@
 // step runs it (repro/core/ervs.py: ervs_step and ervs_jump_step).  Two
 // instances: plain exponential keys (ervs_warp_select, ervs.cuh, the code
 // K4 runs too) and the lane-strided A-ExpJ jump variant for hub lanes
-// (deg >= jump_threshold; ervs_jump_select, ervs_jump.cuh).
+// (deg >= jump_threshold; ervs_jump_select, ervs_jump.cuh).  A third
+// entry, K1 interleaved (repro_ervs_interleaved_select, the interleaved
+// sampler's; ervs_interleaved.cuh), is the plain instance with tile 0 read
+// from the walker's prefetch carry and the chosen node's first tile
+// written back into it.
 //
 // Every program's device rule (weights.cuh) runs here: the walker's
 // step feeds MetaPath's schema, the edge labels its test, the previous
@@ -26,6 +30,7 @@
 #include <cstdint>
 
 #include "ervs.cuh"
+#include "ervs_interleaved.cuh"
 #include "ervs_jump.cuh"
 
 namespace repro {
@@ -50,6 +55,30 @@ ervs_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
   const int64_t nxt = ervs_warp_select(
       g, rule, wc, static_cast<uint32_t>(keys[2 * walker]),
       static_cast<uint32_t>(keys[2 * walker + 1]), st, lane);
+  if (lane == 0) out[walker] = nxt;
+}
+
+// Interleaved: a warp a walker, as the plain instance, held to the same
+// bounds; `lanes` maps walker i to its slot (its carry row).
+__global__ void __launch_bounds__(256, 6)
+ervs_interleaved_kernel(Graph g, Rule rule, const int64_t* __restrict__ cur,
+                        const int64_t* __restrict__ prev,
+                        const int64_t* __restrict__ step,
+                        const int32_t* __restrict__ ring,
+                        const int64_t* __restrict__ keys, int n, int tile,
+                        const int64_t* __restrict__ lanes, Carry c, int flags,
+                        int64_t* __restrict__ out, GenLeaves leaves) {
+  const int walker = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (walker >= n) return;  // whole warps exit together
+  WalkerCtx wc = walker_ctx(
+      g, rule, cur[walker], prev[walker], step[walker],
+      ring ? ring + static_cast<int64_t>(walker) * rule.window : nullptr);
+  load_gen(wc, leaves, walker);
+  const int64_t nxt = ervs_interleaved_warp_select(
+      g, rule, wc, static_cast<uint32_t>(keys[2 * walker]),
+      static_cast<uint32_t>(keys[2 * walker + 1]), tile, c, lanes[walker],
+      flags, lane);
   if (lane == 0) out[walker] = nxt;
 }
 
@@ -174,5 +203,26 @@ extern "C" int repro_ervs_select(const int32_t* indptr, const int32_t* indices,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   repro::ervs_jump_block_kernel<<<repro::jump_block_grid(), repro::kJumpThreads, 0, s>>>(g, rule, cur, prev, step, ring, keys, tile, out, todo, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The interleaved entry: the n walkers' slots `lanes` index the carry
+// (node [W], nbr / h / label [W, tile]), rewritten in place; `flags` as
+// ervs_interleaved_warp_select takes them.  The caller tags every other
+// slot -1.
+extern "C" int repro_ervs_interleaved_select(
+    const int32_t* indptr, const int32_t* indices, const float* h,
+    const int32_t* labels, const repro::Rule* rule_in, const int64_t* cur,
+    const int64_t* prev, const int64_t* step, const int32_t* ring,
+    void* const* leaves, const int64_t* keys, int n, int tile,
+    const int64_t* lanes, int64_t* c_node, int32_t* c_nbr, float* c_h,
+    int32_t* c_label, int flags, int64_t* out, void* stream) {
+  const repro::Graph g{indptr, indices, h, labels};
+  const repro::Carry c{c_node, c_nbr, c_h, c_label};
+  const int threads = 256;  // 8 walkers per block
+  const int blocks = static_cast<int>((static_cast<int64_t>(n) * 32 + threads - 1) / threads);
+  repro::ervs_interleaved_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      g, *rule_in, cur, prev, step, ring, keys, n, tile, lanes, c, flags, out,
+      repro::gen_leaves(leaves));
   return static_cast<int>(cudaGetLastError());
 }

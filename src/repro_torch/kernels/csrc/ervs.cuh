@@ -164,7 +164,8 @@ constexpr int kScanGenerated = 4; // PROGRAM_GENERATED: generated_weight
 // ((1-g)/d(v) + [dist = 1] g/d(v')) * max(d(v), d(v')) taken once a walker.
 struct ScanArgs {
   Graph g;
-  int64_t start;       // the row's first edge
+  int64_t start;       // the row's first edge (scanned from here)
+  uint32_t t0;         // the logical tile of `start`, which keys the RNG
   int64_t prev;        // v', -1 before the first step
   const int32_t* ring;  // visited-avoiding: the walker's ring
   uint32_t k0, k1;     // the step key
@@ -270,12 +271,13 @@ __device__ __forceinline__ Best scan_row(const ScanArgs& a,
   if (st.whole) {
     // every pass in one tile: the tile's key is the warp's, by one shuffle
     // from the window when the warp enters it (tile 0's, folded by all)
-    fold_in(a.k0, a.k1, 0u, tk0, tk1);
+    fold_in(a.k0, a.k1, a.t0, tk0, tk1);
     for (int t = 0, base = 0; base < a.deg; ++t, base += st.tile) {
       if (t > 0) {  // warp-uniform
         if (t - w0 >= 32) {
           w0 = t;
-          fold_in(a.k0, a.k1, static_cast<uint32_t>(w0 + lane), wk0, wk1);
+          fold_in(a.k0, a.k1, a.t0 + static_cast<uint32_t>(w0 + lane), wk0,
+                  wk1);
         }
         tk0 = __shfl_sync(kFullWarp, wk0, t - w0);
         tk1 = __shfl_sync(kFullWarp, wk1, t - w0);
@@ -290,7 +292,7 @@ __device__ __forceinline__ Best scan_row(const ScanArgs& a,
   }
   // any other tile: each thread steps its tile and lane with a carry
   int t = st.lane_t, r = st.lane_r;
-  fold_in(a.k0, a.k1, static_cast<uint32_t>(t), tk0, tk1);
+  fold_in(a.k0, a.k1, a.t0 + static_cast<uint32_t>(t), tk0, tk1);
   // 32 offsets on; a thread that entered a tile and is `on` there takes
   // the tile's key (every thread comes here)
   auto advance = [&](bool on) {
@@ -306,7 +308,8 @@ __device__ __forceinline__ Best scan_row(const ScanArgs& a,
     if (__any_sync(kFullWarp, want)) {
       if (__any_sync(kFullWarp, want && t - w0 >= 32)) {  // past the window
         w0 = __shfl_sync(kFullWarp, t, 0);  // lane 0 holds the lowest tile
-        fold_in(a.k0, a.k1, static_cast<uint32_t>(w0 + lane), wk0, wk1);
+        fold_in(a.k0, a.k1, a.t0 + static_cast<uint32_t>(w0 + lane), wk0,
+                wk1);
       }
       const int src = (t - w0) & 31;
       const uint32_t x0 = __shfl_sync(kFullWarp, wk0, src);
@@ -363,18 +366,16 @@ __device__ __forceinline__ int64_t warp_winner(const Graph& g, int64_t start,
   return static_cast<int64_t>(g.indices[start + win]);
 }
 
-// Next node of walker `wc` (per-step key (k0, k1)), or -1 when no
-// neighbour has a positive weight.  `st` is scan_tile(tile, lane), lane =
-// threadIdx.x & 31.
-__device__ __forceinline__ int64_t ervs_warp_select(const Graph& g,
-                                                    const Rule& rule,
-                                                    const WalkerCtx& wc,
-                                                    uint32_t k0, uint32_t k1,
-                                                    const ScanTile& st,
-                                                    int lane) {
+// The scan's inputs for walker `wc`'s whole row (per-step key (k0, k1)):
+// the row, the step key and the rule's per-walker constants.
+__device__ __forceinline__ ScanArgs scan_args(const Graph& g,
+                                              const Rule& rule,
+                                              const WalkerCtx& wc,
+                                              uint32_t k0, uint32_t k1) {
   ScanArgs a;
   a.g = g;
   a.start = g.indptr[wc.cur];
+  a.t0 = 0;
   a.prev = wc.prev;
   a.ring = wc.ring;
   a.k0 = k0;
@@ -388,22 +389,17 @@ __device__ __forceinline__ int64_t ervs_warp_select(const Graph& g,
     a.p_begin = g.indptr[wc.prev];
     a.p_end = g.indptr[wc.prev + 1];
   }
-  Best top;
   switch (rule.program) {
     case PROGRAM_METAPATH: {
       int64_t s = wc.step % rule.schema_len;
       if (s < 0) s += rule.schema_len;
       a.label = rule.schema[s];
-      top = scan_rule<kScanMetaPath>(rule.weighted, a, st, lane);
       break;
     }
     case PROGRAM_NODE2VEC:
     case PROGRAM_VISITED:
       a.f0 = rule.c0;
       a.f2 = rule.c2;
-      top = rule.program == PROGRAM_VISITED
-                ? scan_rule<kScanVisited>(rule.weighted, a, st, lane)
-                : scan_rule<kScanDist>(rule.weighted, a, st, lane);
       break;
     case PROGRAM_SECOND_ORDER_PR: {
       const float dv = fmaxf(__int2float_rn(wc.deg_cur), 1.0f);
@@ -412,20 +408,50 @@ __device__ __forceinline__ int64_t ervs_warp_select(const Graph& g,
       const float dmax = fmaxf(dv, dp);
       a.f1 = __fmul_rn(__fadd_rn(base, __fdiv_rn(rule.g, dp)), dmax);
       a.f0 = a.f2 = __fmul_rn(__fadd_rn(base, 0.0f), dmax);
-      top = scan_rule<kScanDist>(rule.weighted, a, st, lane);
       break;
     }
-#ifdef REPRO_GENERATED_RULE
-    case PROGRAM_GENERATED:
-      top = rule.weighted ? scan_row_generated<true>(a, st, lane, wc)
-                          : scan_row_generated<false>(a, st, lane, wc);
-      break;
-#endif
-    default:  // DeepWalk, PPR-Nibble
-      top = scan_rule<kScanH>(rule.weighted, a, st, lane);
+    default:
       break;
   }
-  return warp_winner(g, a.start, top);
+  return a;
+}
+
+// This thread's best over `a`'s row (offsets relative to a.start) by the
+// scan of the rule's class; the whole warp calls it together.
+__device__ __forceinline__ Best scan_dispatch(const Rule& rule,
+                                              const ScanArgs& a,
+                                              const ScanTile& st, int lane,
+                                              const WalkerCtx& wc) {
+  switch (rule.program) {
+    case PROGRAM_METAPATH:
+      return scan_rule<kScanMetaPath>(rule.weighted, a, st, lane);
+    case PROGRAM_NODE2VEC:
+      return scan_rule<kScanDist>(rule.weighted, a, st, lane);
+    case PROGRAM_VISITED:
+      return scan_rule<kScanVisited>(rule.weighted, a, st, lane);
+    case PROGRAM_SECOND_ORDER_PR:
+      return scan_rule<kScanDist>(rule.weighted, a, st, lane);
+#ifdef REPRO_GENERATED_RULE
+    case PROGRAM_GENERATED:
+      return rule.weighted ? scan_row_generated<true>(a, st, lane, wc)
+                           : scan_row_generated<false>(a, st, lane, wc);
+#endif
+    default:  // DeepWalk, PPR-Nibble
+      return scan_rule<kScanH>(rule.weighted, a, st, lane);
+  }
+}
+
+// Next node of walker `wc` (per-step key (k0, k1)), or -1 when no
+// neighbour has a positive weight.  `st` is scan_tile(tile, lane), lane =
+// threadIdx.x & 31.
+__device__ __forceinline__ int64_t ervs_warp_select(const Graph& g,
+                                                    const Rule& rule,
+                                                    const WalkerCtx& wc,
+                                                    uint32_t k0, uint32_t k1,
+                                                    const ScanTile& st,
+                                                    int lane) {
+  const ScanArgs a = scan_args(g, rule, wc, k0, k1);
+  return warp_winner(g, a.start, scan_dispatch(rule, a, st, lane, wc));
 }
 
 // The same choice by the unfiltered loop: a division, a fold per tile a

@@ -2,11 +2,14 @@
 
 ``ervs_select`` picks the next node of each given walker — exponential
 keys (``jump=False``) or the lane-strided A-ExpJ variant (``jump=True``).
-On CPU tensors it runs the plain versions ``core.ervs.ervs_step`` /
-``ervs_jump_step``; on CUDA tensors it launches the kernel (building it
-on first use: a program without a hand-written rule gets its own instance
-of the kernel, built from its generated rule, which may read the walkers'
-``wstate`` leaves) or raises.
+``ervs_interleaved_select`` is the ``interleaved`` sampler's entry: the
+exponential keys with tile 0 read from the walkers' prefetch carry, which
+it refills.  On CPU tensors they run the plain versions
+``core.ervs.ervs_step`` / ``ervs_jump_step`` / ``interleaved_step``; on
+CUDA tensors they launch the kernel (building it on first use: a program
+without a hand-written rule gets its own instance of the kernel, built
+from its generated rule, which may read the walkers' ``wstate`` leaves)
+or raise.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.ervs import ervs_jump_step, ervs_step
+from repro_torch.core.ervs import ervs_jump_step, ervs_step, interleaved_step
 from repro_torch.kernels import build, rulegen
 from repro_torch.kernels.rules import (DEEPWALK, METAPATH, NODE2VEC,
                                        PPR_NIBBLE, SECOND_ORDER_PR, VISITED,
@@ -113,4 +116,58 @@ def ervs_select(graph, program, params, cur, prev, step, keys, *,
         keys.data_ptr(), n, tile, int(jump), out.data_ptr(), todo, stream)
     build.check(err, "ervs_select")
     build.LAUNCHES["ervs_jump_select" if jump else "ervs_select"] += 1
+    return out
+
+
+def ervs_interleaved_select(graph, program, params, cur, prev, step, keys,
+                            carry, lanes, *, tile: int = 256,
+                            wstate=None) -> torch.Tensor:
+    """Next node [n] (int64; -1 when no neighbour has a positive weight) of
+    the n walkers in slots ``lanes`` ([n] int64) of ``carry``, the
+    ``interleaved`` sampler's ``PrefetchTile`` of every slot; ``cur``,
+    ``prev``, ``step``, ``keys`` and ``wstate`` are those walkers' rows.
+    The choice is ``ervs_select``'s (``jump=False``), bitwise.
+
+    Tile 0 of a walker whose carry tag equals ``cur`` comes from its
+    carry row, of any other from the graph; after the choice its carry
+    row holds the first ``min(deg, tile)`` entries of the chosen node's
+    row (nbr, h and label as the program reads them), tagged with that
+    node (-1 where it chose none), and every other slot gets tag -1.  The
+    carry is rewritten in place.  On the card the entries past ``min(deg,
+    tile)`` are left as they were (``PrefetchTile``'s docstring)."""
+    if cur.device.type == "cpu":
+        return interleaved_step(graph, program, params, cur, prev, step,
+                                keys, carry, lanes, tile=tile, wstate=wstate)
+    rule = kernel_rule(program, params)
+    n = cur.shape[0]
+    dev = cur.device
+    ring, leaves = walker_inputs(graph, rule, cur, prev, step, keys, wstate,
+                                 dev)
+    if tile < 1:
+        raise ValueError(f"tile must be positive, got {tile}")
+    W = carry.node.shape[0]
+    build.require(lanes, "lanes", torch.int64, (n,), dev)
+    build.require(carry.node, "carry.node", torch.int64, (W,), dev)
+    for name, dtype in (("nbr", torch.int32), ("h", torch.float32),
+                        ("label", torch.int32)):
+        build.require(getattr(carry, name), f"carry.{name}", dtype,
+                      (W, tile), dev)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    other = torch.ones(W, dtype=torch.bool, device=dev)
+    other[lanes] = False
+    if n:
+        lib = build.library("ervs", rule.header)
+        rs = rule.as_struct()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        flags = int(program.weighted) | int(program.needs_labels) << 1
+        err = lib.repro_ervs_interleaved_select(
+            graph.indptr.data_ptr(), graph.indices.data_ptr(),
+            graph.h.data_ptr(), graph.labels.data_ptr(), ctypes.byref(rs),
+            cur.data_ptr(), prev.data_ptr(), step.data_ptr(), ring, leaves,
+            keys.data_ptr(), n, tile, lanes.data_ptr(),
+            carry.node.data_ptr(), carry.nbr.data_ptr(), carry.h.data_ptr(),
+            carry.label.data_ptr(), flags, out.data_ptr(), stream)
+        build.check(err, "ervs_interleaved_select")
+        build.LAUNCHES["ervs_interleaved_select"] += 1
+    carry.node.masked_fill_(other, -1)
     return out

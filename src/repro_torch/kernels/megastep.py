@@ -179,7 +179,7 @@ def fused_epoch(graph, program, params, state: WalkerState, *, kind: str,
                       prev=torch.empty_like(state.prev),
                       step=torch.empty_like(state.step),
                       alive=torch.empty_like(state.alive), rng=state.rng,
-                      wstate=wstate)
+                      carry=state.carry, wstate=wstate)
     if W == 0:
         return out, emitted, flags
     lib = build.library("megastep", rule.header or hooks.header)
@@ -278,4 +278,5 @@ def fused_epoch_plain(graph, program, params, state: WalkerState, *,
         cur = torch.where(stepped, nxt, cur)
         step = step + stepped.to(torch.int64)
     return (WalkerState(cur=cur, prev=prev, step=step, alive=alive,
-                        rng=state.rng, wstate=wstate), emitted, flags)
+                        rng=state.rng, carry=state.carry, wstate=wstate),
+            emitted, flags)

@@ -115,13 +115,14 @@ def graph_aligned_weights(graph):
 def aligned_precomp_tables(tables, indptr):
     """Repack precomp tables' flat [E] arrays into the aligned layout
     (alias offsets ride the float32 stream, exact below 2^24).  Returns
-    (cdf2d, prob2d, alias2d, row0, degs) on the tables' device."""
-    tables.require_alias()
+    (cdf2d, prob2d, alias2d, row0, degs) on the tables' device; prob2d
+    and alias2d are None for tables without alias arrays."""
     dev = tables.cdf.device
     indptr = _host(indptr).astype(np.int64)
     degs = np.diff(indptr)
     R, row0, src, dst = _layout(indptr[:-1], degs, False)
-    streams = [_scatter(_host(a).astype(np.float32), R, src, dst,
+    streams = [None if a is None else
+               _scatter(_host(a).astype(np.float32), R, src, dst,
                         np.float32, dev)
                for a in (tables.cdf, tables.alias_prob, tables.alias_off)]
     return (*streams, torch.from_numpy(row0.astype(np.int32)).to(dev),

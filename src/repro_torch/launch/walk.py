@@ -5,6 +5,9 @@
         --method adaptive --device cuda
 
 ``--device cpu`` runs the kernels' plain PyTorch versions instead;
+``--method interleaved`` runs eRVS with the cross-step tile prefetch (K1's
+interleaved entry); ``--precomp-exec aligned`` draws the table regimes
+through the aligned entries of K3 / K5 on the tile-aligned streams;
 ``--step-exec fused`` runs each epoch as one fused launch where the
 (method × workload) cell allows it (the summary prints which path ran).
 ``--workload module:factory`` imports ``module``, registers ``factory``
@@ -27,6 +30,8 @@ import numpy as np
 from repro_torch.core import (EngineConfig, WalkEngine, available_samplers,
                               flexi_compiler)
 from repro_torch.core.runtime import STEP_EXEC_CHOICES
+from repro_torch.core.samplers import (PRECOMP_EXEC_CHOICES,
+                                       resolve_precomp_exec)
 from repro_torch.device import DEVICES
 from repro_torch.graphs import power_law_graph, random_graph
 from repro_torch.kernels import build
@@ -68,6 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fused: one launch per epoch where the cell has a "
                          "fused regime; staged: the step loop; auto: fused "
                          "on the card, staged on the CPU")
+    ap.add_argument("--precomp-exec", choices=PRECOMP_EXEC_CHOICES,
+                    default="auto",
+                    help="execution path of the staged table draws: flat "
+                         "(the engine entries of K3 / K5), aligned (their "
+                         "aligned entries on the tile-aligned streams); "
+                         "auto: flat.  The same bits either way")
     return ap
 
 
@@ -116,11 +127,13 @@ def main(argv=None):
     eng = WalkEngine(graph, wl, EngineConfig(method=args.method,
                                              seed=args.seed,
                                              device=args.device,
-                                             step_exec=args.step_exec))
+                                             step_exec=args.step_exec,
+                                             precomp_exec=args.precomp_exec))
     print(f"[walk] compiler flag: {eng.compiled.flag} "
           f"static={flexi_compiler.is_static(wl)} "
           f"fusable={eng.fuse.fusable} warnings={eng.compiled.warnings} "
-          f"device={eng.device} step_exec={eng.step_exec_resolved}")
+          f"device={eng.device} step_exec={eng.step_exec_resolved} "
+          f"precomp_exec={resolve_precomp_exec(args.precomp_exec)}")
     starts = np.arange(args.queries) % graph.num_nodes
     build.reset_launches()
     t0 = time.time()

@@ -3,9 +3,8 @@ test_programs.py``'s adapter cases): the constructor warns,
 ``from_workload`` is the identity on programs and adapts a duck-typed
 legacy object, and the six stateless registry programs give the same
 paths and telemetry natively, as a ``Workload`` and through
-``from_workload`` under ``ervs`` and ``adaptive``, equal to the
-reference's native runs.  (The reference's ``interleaved`` cell waits for
-the port of that sampler.)
+``from_workload`` under ``ervs``, ``adaptive`` and ``interleaved``,
+equal to the reference's native runs.
 """
 import jax
 import numpy as np
@@ -88,7 +87,7 @@ def test_duck_typed_legacy_object_accepted(graphs):
     assert eng.compiled.flag == "PER_STEP"
 
 
-@pytest.mark.parametrize("method", ["ervs", "adaptive"])
+@pytest.mark.parametrize("method", ["ervs", "adaptive", "interleaved"])
 @pytest.mark.parametrize("name", LEGACY_NAMES)
 def test_bit_identity_through_adapter(graphs, name, method):
     """Paths and telemetry natively, as a ``Workload`` and through
